@@ -6,17 +6,23 @@
 Phases, each of which raises on failure:
 
   build  compile the CUDA kernels in ``src/repro_torch/csrc`` (one nvcc per
-         source, all at once) and print the build time;
+         source, all at once), print the build time, and check in the
+         SASS of flash_attention that its bf16 kernels run on the tensor
+         cores (HGMMA or HMMA);
   (a)    hold each kernel against its plain torch version on the card: the
          kernel test cases, the main-path shapes, one gemma2 shape;
   (b)    time each kernel, its plain version, a library call that computes
          the same function (a yardstick only; the port never calls it) and
-         the card's bound, at the main-path shapes and one long shape;
+         the card's bound, at the main-path shapes, the long shapes (decode
+         split over the cache) and the gemma2 hd=256 prefill; each timed
+         output is also held against the plain version;
   (c)    qwen2-7b at full width and 2 layers: prefill + 8 decode steps with
          the kernels vs the plain versions inside the model;
   (d)    the main path: ``repro_torch.launch.serve`` with ``--arch qwen2-7b
          --full`` (28 layers, bf16, random weights from a seed) serving 4
-         requests through the port's gym ``Engine``, with launch counts.
+         requests through the port's gym ``Engine``, with launch counts,
+         and one profiled request whose attention kernels must be the
+         redesigned ones, by name and call count.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -26,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -68,6 +75,9 @@ MAIN_MAXLEN = MAIN_S + MAIN_GEN + 8
 QWEN = dict(NH=28, KV=4, hd=128)
 N_LAYERS = 28
 N_REQUESTS = 4
+# kernel names (csrc/*.cu) that the profiler rows are matched against
+ATTN_KERNELS = ("fa_fwd_bf16_mma", "fa_fwd_f32_simt", "fd_split_kernel",
+                "fd_combine_kernel")
 
 # the logits of (c) are bf16 values of magnitude up to ~5 (ulp 2**-5):
 # a few ulps of difference where one attention output rounds differently
@@ -149,6 +159,34 @@ def phase_build():
                   if "spill" in line and not line.strip().startswith("0 ")]
         log(f"[build] {name}: registers per thread {regs}; "
             f"{'no spills' if not spills else spills}")
+    log("[build] flash_attention bf16 kernels: " + tensor_core_check(_build))
+
+
+def tensor_core_check(_build) -> str:
+    """The SASS of every bf16 flash_attention kernel holds tensor-core
+    instructions (HGMMA for wgmma, HMMA for mma.sync); raise otherwise."""
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(tool), "-sass", str(_build.lib_path("flash_attention"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    found = {}
+    for func in sass.split("Function : ")[1:]:
+        name = func.split(None, 1)[0]
+        if "fa_fwd_bf16" not in name:
+            continue
+        ops = [op for op in ("HGMMA", "HMMA") if op in func]
+        if not ops:
+            raise AssertionError(f"[build] {name}: no HGMMA or HMMA in its "
+                                 "SASS: the bf16 kernel is not on the "
+                                 "tensor cores")
+        hd = int(re.search(r"ILi(\d+)E", name).group(1))
+        found[hd] = (ops[0], func.count(ops[0]))
+    if sorted(found) != [16, 32, 64, 128, 256]:
+        raise AssertionError(f"[build] bf16 flash_attention kernels for "
+                             f"head_dims {sorted(found)} in the SASS, "
+                             "expected 16, 32, 64, 128, 256")
+    return "; ".join(f"hd={hd}: {op} x{c}" for hd, (op, c) in
+                     sorted(found.items()))
 
 
 class Inputs:
@@ -242,27 +280,35 @@ def phase_a(rnd) -> dict:
     return errs
 
 
-def time_prefill(rnd, label, B, S, NH, KV, hd):
+def time_prefill(rnd, label, B, S, NH, KV, hd, window=0, cap=0.0):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ref
     dt = torch.bfloat16
     q, k, v = rnd((B, S, NH, hd), dt), rnd((B, S, KV, hd), dt), \
         rnd((B, S, KV, hd), dt)
-    scale = hd ** -0.5
+    kw = dict(scale=hd ** -0.5, window=window, softcap=cap)
     calls = 20 if S <= 1024 else 3
-    ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale=scale), calls)
-    plain = time_ms(lambda: ref.attention(q, k, v, scale=scale), calls)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True), calls)
-    pairs = attn_pairs(S, S, 0)
+    ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), calls)
+    plain = time_ms(lambda: ref.attention(q, k, v, **kw), calls)
+    lib = None  # SDPA has no softcap and no window: no library call
+    if not window and not cap:
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=kw["scale"], enable_gqa=True),
+            calls)
+    err = check_close(f"flash_attention {label}",
+                      fa.flash_attention_fwd(q, k, v, **kw),
+                      ref.attention(q, k, v, **kw), TOL["bfloat16"])
+    pairs = attn_pairs(S, S, window)
     flops = 4.0 * hd * pairs * B * NH
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     b_ms, b_by = bound(flops, nbytes, "bfloat16")
     log(f"[b] flash_attention {label} q{(B, S, NH, hd)} kv{(B, S, KV, hd)} "
-        f"bf16: kernel {ms} ms, plain {plain} ms, sdpa {lib} ms, bound "
-        f"{b_ms} ms by {b_by} (flops {flops:.4g}, bytes {nbytes:.4g})")
+        f"bf16 window {window} softcap {cap}: kernel {ms} ms, plain {plain} "
+        f"ms, sdpa {lib} ms, bound {b_ms} ms by {b_by} (share "
+        f"{b_ms / ms:.4f}; flops {flops:.4g}, bytes {nbytes:.4g}); max "
+        f"|err| vs plain {err}")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -275,6 +321,7 @@ def time_decode(rnd, label, B, S, NH, KV, hd, pos, kv_dtype,
     q, kc, vc = decode_inputs(rnd, B, S, NH, KV, hd, torch.bfloat16,
                               kv_dtype, model_layout)
     scale = hd ** -0.5
+    n_split = fd.plan(q, kc, pos)
     ms = time_ms(lambda: fd.flash_decode(q, kc, vc, pos, scale=scale))
     plain = time_ms(lambda: ref.decode(q, kc, vc, pos, scale=scale))
     # library yardstick: one SDPA call over the valid keys, q in the
@@ -284,6 +331,10 @@ def time_decode(rnd, label, B, S, NH, KV, hd, pos, kv_dtype,
     vl = vc[:, :pos + 1].transpose(1, 2)
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         ql, kl, vl, scale=scale, enable_gqa=True))
+    err = check_close(f"flash_decode {label}",
+                      fd.flash_decode(q, kc, vc, pos, scale=scale),
+                      ref.decode(q, kc, vc, pos, scale=scale),
+                      TOL["bfloat16"])
     n = min(S, pos + 1)
     kv_name = str(kv_dtype).split(".")[1]
     elt = 2 if kv_name == "bfloat16" else 4
@@ -291,11 +342,13 @@ def time_decode(rnd, label, B, S, NH, KV, hd, pos, kv_dtype,
     nbytes = 2 * 2 * B * NH * hd + 2 * B * KV * n * hd * elt
     b_ms, b_by = bound(flops, nbytes, kv_name)
     log(f"[b] flash_decode {label} q{(B, NH, hd)} bf16, cache{(B, S, KV, hd)}"
-        f" {kv_name} pos {pos}: kernel {ms} ms, plain {plain} ms, sdpa {lib}"
-        f" ms, bound {b_ms} ms by {b_by} (flops {flops:.4g}, bytes "
-        f"{nbytes:.4g})")
+        f" {kv_name} pos {pos}: n_split {n_split} ({n_split * KV * B} "
+        f"blocks{', combine kernel' if n_split > 1 else ''}); kernel {ms} "
+        f"ms, plain {plain} ms, sdpa {lib} ms, bound {b_ms} ms by {b_by} "
+        f"(share {b_ms / ms:.4f}; flops {flops:.4g}, bytes {nbytes:.4g}); "
+        f"max |err| vs plain {err}")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, n_split=n_split)
 
 
 def phase_b(rnd) -> dict:
@@ -308,13 +361,19 @@ def phase_b(rnd) -> dict:
                                     kv_dtype=torch.float32),
     }
     time_prefill(rnd, "long", 1, 8192, **QWEN)
-    time_decode(rnd, "long", 8, 32768, **QWEN, pos=32767,
-                kv_dtype=torch.bfloat16)
+    # gemma2: hd=256 (dynamic shared memory, 128 accumulators per thread)
+    time_prefill(rnd, "gemma2", 1, 4608, 8, 4, 256, window=4096, cap=50.0)
+    long = time_decode(rnd, "long", 8, 32768, **QWEN, pos=32767,
+                       kv_dtype=torch.bfloat16)
     # the same work on contiguous (B,S,KV,hd) caches: what the model's
     # (B,KV,hd,S) K layout costs this kernel's loads
     time_decode(rnd, "long, contiguous (B,S,KV,hd) caches", 8, 32768,
                 **QWEN, pos=32767, kv_dtype=torch.bfloat16,
                 model_layout=False)
+    if long["n_split"] < 2:
+        raise AssertionError("[b] the long decode was not split")
+    if main["flash_decode"].pop("n_split") != 1:
+        raise AssertionError("[b] the main-path decode was split")
     torch.cuda.empty_cache()
     return main
 
@@ -465,6 +524,7 @@ def phase_d() -> dict:
             "flash_decode": N_LAYERS * (MAIN_GEN - 1) * N_REQUESTS}
     if launches != want:
         raise AssertionError(f"[d] launches {launches}, expected {want}")
+    splits = decode_splits()
     profile_request(eng, walls)
     m = eng.metrics()
     e2e = eng.monitor.e2e_latency()
@@ -475,11 +535,29 @@ def phase_d() -> dict:
         f"{MAIN_B}, seq {MAIN_S}, gen {MAIN_GEN}) {walls} s; engine run "
         f"{wall:.3f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[d] flash_decode split count by decode position {splits}: "
+        f"{MAIN_B * QWEN['KV']} blocks per step, no combine kernel")
     log(f"[d] sim e2e latency per request (s): {e2e}")
     log("[d] metrics " + json.dumps(
         {k: v for k, v in m.items() if not isinstance(v, (dict, list))},
         sort_keys=True, default=str))
     return launches
+
+
+def decode_splits() -> dict:
+    """The split count of each decode step of the main path (bf16 q, the
+    model's float32 (B,KV,hd,S) K cache); all must be 1."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    q = torch.empty((MAIN_B, QWEN["NH"], QWEN["hd"]), dtype=torch.bfloat16,
+                    device="cuda")
+    kc = torch.empty((MAIN_B, QWEN["KV"], QWEN["hd"], MAIN_MAXLEN),
+                     device="cuda").permute(0, 3, 1, 2)
+    splits = {pos: fd.plan(q, kc, pos)
+              for pos in range(MAIN_S, MAIN_S + MAIN_GEN - 1)}
+    if set(splits.values()) != {1}:
+        raise AssertionError(f"[d] main-path decode splits {splits}")
+    return splits
 
 
 def profile_request(eng, walls) -> None:
@@ -512,6 +590,20 @@ def profile_request(eng, walls) -> None:
         f"unprofiled wall")
     for ms, n, key in sorted(rows, reverse=True)[:8]:
         log(f"[d]   {ms:.3f} ms device, {n} calls: {key[:90]}")
+    # the request's attention ran through the redesigned kernels: the
+    # tensor-core prefill once per layer, the split decode once per layer
+    # and step, no combine (one split) and no float32 body
+    got = {name: [sum(r[1] for r in rows if name in r[2]),
+                  sum(r[0] for r in rows if name in r[2])]
+           for name in ATTN_KERNELS}
+    want = {name: 0 for name in ATTN_KERNELS}
+    want.update(fa_fwd_bf16_mma=N_LAYERS,
+                fd_split_kernel=N_LAYERS * (MAIN_GEN - 1))
+    if {name: n for name, (n, _) in got.items()} != want:
+        raise AssertionError(f"[d] attention kernel calls in the profiled "
+                             f"request {got}, expected {want}")
+    log("[d] attention kernels of the profiled request: " + ", ".join(
+        f"{name} {n} calls {ms:.3f} ms" for name, (n, ms) in got.items()))
 
 
 def main() -> int:
@@ -532,14 +624,18 @@ def main() -> int:
     phase_c()
     launches = phase_d()
     kernels = []
-    for name, src, replaces in (
+    for name, src, replaces, design in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:81"),
+             "src/repro/kernels/flash_attention.py:81",
+             "mma.sync+cp.async"),
             ("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
-             "src/repro/kernels/flash_decode.py:68")):
+             "src/repro/kernels/flash_decode.py:68", "split-k+cp.async")):
+        t = times[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": errs[name], **times[name]})
+                        "max_abs_err": errs[name], **t,
+                        "bound_share": t["bound_ms"] / t["ms"],
+                        "design": design})
     log(f"[done] torch {torch.__version__} (cuda {torch.version.cuda}); "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -68,6 +68,13 @@ def _check(q, k, v):
                              f"{t.stride(3)} != 1")
 
 
+def _rows_aligned(t) -> bool:
+    """Every (batch, seq, head) row of t starts 16-byte aligned."""
+    e = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) * e % 16 == 0 for i in range(3))
+
+
 def flash_attention_fwd(q, k, v, *, scale: float, causal: bool = True,
                         window: int = 0, softcap: float = 0.0):
     """q: (B, Sq, NH, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, NH, hd)."""
@@ -77,6 +84,11 @@ def flash_attention_fwd(q, k, v, *, scale: float, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     _check(q, k, v)
+    if q.dtype == torch.bfloat16:
+        # the tensor-core path copies 16-byte runs of each row
+        q, k, v = (t if _rows_aligned(t) else
+                   t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     B, Sq, NH, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, NH, hd), dtype=q.dtype, device=q.device)

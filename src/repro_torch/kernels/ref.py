@@ -69,6 +69,81 @@ def decode(q, k_cache, v_cache, pos: int, *, scale: float, window: int = 0,
     return o.reshape(B, NH, hd).to(q.dtype)
 
 
+# Split-K decode (csrc/flash_decode.cu): the valid keys are cut into units
+# of SPLIT_KEYS keys (a multiple of every tile of the kernel), and split i
+# of n takes units [i * nu // n, (i + 1) * nu // n) of the nu units the
+# valid range touches, clipped to the range.  The kernel computes the same
+# ranges from its block index.
+SPLIT_KEYS = 128
+
+
+def valid_range(pos: int, window: int = 0) -> tuple[int, int]:
+    """The keys [lo, hi) a decode step at ``pos`` attends."""
+    return (max(0, pos - window + 1) if window else 0), pos + 1
+
+
+def split_units(lo: int, hi: int) -> int:
+    """How many SPLIT_KEYS-key units the keys [lo, hi) touch."""
+    return -(-hi // SPLIT_KEYS) - lo // SPLIT_KEYS
+
+
+def split_ranges(lo: int, hi: int, n_split: int) -> list[tuple[int, int]]:
+    """The key range [start, end) of each of ``n_split`` splits of [lo, hi).
+
+    A split gets no keys (end <= start) only when n_split exceeds
+    :func:`split_units`; the wrapper's rule never picks such a count.
+    """
+    u0, nu = lo // SPLIT_KEYS, split_units(lo, hi)
+    out = []
+    for i in range(n_split):
+        us, ue = u0 + i * nu // n_split, u0 + (i + 1) * nu // n_split
+        out.append((max(lo, us * SPLIT_KEYS), min(hi, ue * SPLIT_KEYS)))
+    return out
+
+
+def decode_split(q, k_cache, v_cache, pos: int, *, n_split: int,
+                 scale: float, window: int = 0, softcap: float = 0.0,
+                 partials: bool = False):
+    """:func:`decode` computed as the split-K kernel computes it.
+
+    Each split of :func:`split_ranges` gives float32 partials over its
+    keys: acc (unnormalized P.V), m (row max) and l (row sum of
+    exp(s - m)); a split without keys keeps m = NEG_INF, l = 0, acc = 0.
+    They are merged by log-sum-exp: M = max m_i, w_i = exp(m_i - M),
+    o = sum w_i acc_i / max(sum w_i l_i, 1e-30).  Returns o in q.dtype,
+    and with ``partials`` also (acc (n, B, NH, hd), m (n, B, NH),
+    l (n, B, NH)).
+    """
+    B, NH, hd = q.shape
+    KV = k_cache.shape[2]
+    G = NH // KV
+    qg = q.reshape(B, KV, G, hd).float() * scale
+    accs, ms, ls = [], [], []
+    for start, end in split_ranges(*valid_range(pos, window), n_split):
+        if end <= start:
+            accs.append(torch.zeros((B, KV, G, hd), device=q.device))
+            ms.append(torch.full((B, KV, G), NEG_INF, device=q.device))
+            ls.append(torch.zeros((B, KV, G), device=q.device))
+            continue
+        s = torch.einsum("bkgh,bskh->bkgs", qg,
+                         k_cache[:, start:end].float())
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        accs.append(torch.einsum("bkgs,bskh->bkgh", p,
+                                 v_cache[:, start:end].float()))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+    acc = torch.stack(accs).reshape(n_split, B, NH, hd)
+    m = torch.stack(ms).reshape(n_split, B, NH)
+    l = torch.stack(ls).reshape(n_split, B, NH)
+    w = torch.exp(m - m.amax(dim=0))
+    den = torch.clamp((w * l).sum(dim=0), min=1e-30)
+    o = ((w[..., None] * acc).sum(dim=0) / den[..., None]).to(q.dtype)
+    return (o, (acc, m, l)) if partials else o
+
+
 def rmsnorm(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
     """x: (..., D); scale: (D,)."""
     xf = x.float()

@@ -106,6 +106,81 @@ def test_flash_decode_strided_model_cache(kv_dtype, cuda):
     close(out, ref.decode(q, kv, vv, 70, scale=128 ** -0.5), 2e-2)
 
 
+@pytest.mark.parametrize("S,window,cap", [(96, 0, 0.0), (200, 48, 30.0)])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_flash_attention_bf16_every_head_dim_ragged(hd, S, window, cap,
+                                                    cuda):
+    """The tensor-core path at every head_dim, with a ragged last tile
+    (zero-filled rows) and the window / softcap masks."""
+    B, NH, KV = 2, 4, 2
+    q, k, v = (a.to(cuda, torch.bfloat16) for a in arrays(
+        4, (B, S, NH, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    out = ops.flash_attention(q, k, v, hd ** -0.5, True, window, cap)
+    close(out, ref.attention(q, k, v, scale=hd ** -0.5, window=window,
+                             softcap=cap), 2e-2)
+
+
+def test_flash_attention_bf16_unaligned_rows(cuda):
+    """Rows that do not start 16-byte aligned are copied before launch."""
+    q, k, v = (a.to(cuda, torch.bfloat16) for a in arrays(
+        5, (1, 70, 2, 40), (1, 70, 2, 40), (1, 70, 2, 40)))
+    q, k, v = q[..., 4:36], k[..., 4:36], v[..., 4:36]   # hd 32, offset 8 B
+    out = ops.flash_attention(q, k, v, 32 ** -0.5)
+    close(out, ref.attention(q, k, v, scale=32 ** -0.5), 2e-2)
+
+
+DTYPE_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.bfloat16)]
+
+
+def decode_caches(seed, B, S, KV, hd, kv_dtype, model_layout):
+    """The model's K (B,KV,hd,S) / V (B,KV,S,hd) caches as strided
+    (B,S,KV,hd) views, or contiguous (B,S,KV,hd) caches."""
+    if model_layout:
+        kc, vc = arrays(seed, (B, KV, hd, S), (B, KV, S, hd))
+        return (kc.to("cuda", kv_dtype).permute(0, 3, 1, 2),
+                vc.to("cuda", kv_dtype).permute(0, 2, 1, 3))
+    kc, vc = arrays(seed, (B, S, KV, hd), (B, S, KV, hd))
+    return kc.to("cuda", kv_dtype), vc.to("cuda", kv_dtype)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("model_layout", [True, False])
+@pytest.mark.parametrize("pos,window", [(8191, 0), (5000, 1024)])
+def test_flash_decode_split_k_long_cache(pos, window, model_layout, q_dtype,
+                                         kv_dtype, cuda):
+    """An 8k cache: the rule splits it over several blocks per (batch
+    row, KV head), and the combine kernel merges them."""
+    B, S, NH, KV, hd = 2, 8192, 14, 2, 128
+    q = arrays(6, (B, NH, hd))[0].to(cuda, q_dtype)
+    kc, vc = decode_caches(7, B, S, KV, hd, kv_dtype, model_layout)
+    assert fd.plan(q, kc, pos, window) > 1
+    kw = dict(scale=hd ** -0.5, window=window)
+    out = ops.flash_decode(q, kc, vc, pos, **kw)
+    close(out, ref.decode(q, kc, vc, pos, **kw), TOL[q_dtype])
+
+
+@pytest.mark.parametrize("S,pos,window", [(2048, 1900, 1000), (256, 100, 0)])
+@pytest.mark.parametrize("n_split", [2, 3, 7])
+def test_flash_decode_forced_splits_match_decode_split(n_split, S, pos,
+                                                       window, cuda,
+                                                       monkeypatch):
+    """The split and combine kernels against ref.decode_split at the same
+    split count (the rule forced to it); at S=256 most of the 7 splits get
+    no keys (the combine's guard against all-masked splits)."""
+    monkeypatch.setattr(fd, "split_count", lambda *args: n_split)
+    B, NH, KV, hd = 2, 8, 2, 64
+    q = arrays(8, (B, NH, hd))[0].to(cuda)
+    kc, vc = decode_caches(9, B, S, KV, hd, torch.float32, True)
+    kw = dict(scale=hd ** -0.5, window=window, softcap=30.0)
+    before = fd.launches
+    out = fd.flash_decode(q, kc, vc, pos, **kw)
+    assert fd.launches == before + 1
+    close(out, ref.decode_split(q, kc, vc, pos, n_split=n_split, **kw), 2e-5)
+    close(out, ref.decode(q, kc, vc, pos, **kw), 2e-5)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 64, 2, 48), device=cuda)     # head_dim 48
     before = (fa.launches, fd.launches)
