@@ -22,7 +22,19 @@ Phases, each of which raises on failure:
          --full`` (28 layers, bf16, random weights from a seed) serving 4
          requests through the port's gym ``Engine``, with launch counts,
          and one profiled request whose attention kernels must be the
-         redesigned ones, by name and call count.
+         redesigned ones, by name and call count;
+  (e)    xlstm-125m at full width (12 layers, d=768, float32 params drawn
+         on the CPU from a seed and copied to the card, bf16 compute):
+         ``repro_torch.launch.serve --arch xlstm-125m --full`` serving 4
+         requests through the gym (no attention kernel on this path), one
+         profiled request with the sLSTM per-step loop's share of its
+         kernels, and one prefill of 1024 tokens plus 8 decode steps on the
+         card held against the CPU with the same weights;
+  (f)    the paper's applications (sentiment, ride selection, fraud SVM,
+         traffic metrics) through the gym with their tensor compute on the
+         card, held against the same pipelines on the CPU (ROADMAP C3),
+         then the Ocampo scenario of Fig. 7b at 20-100 users on the card,
+         printing the mean measured SPE wall per window.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -31,6 +43,7 @@ result, when no GPU is present or the port is missing.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -48,6 +61,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BPS = 3.35e12
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SPIN_CYCLES = 50_000_000  # ~30 ms of spinning: longer than any enqueue
+DEV = "cuda"  # the device of the served paths (d), (e), (f)
 
 # the kernel test cases of tests/test_kernels.py
 FWD_CASES = [
@@ -400,10 +414,52 @@ class plain_attention:
         ops.flash_attention, ops.flash_decode = self.saved
 
 
+def greedy_steps(model, toks, steps, feed=None):
+    """Prefill ``toks``, then ``steps`` decode steps; each step feeds the
+    argmax of the last logits, or ``feed[i]`` where given.  Returns the
+    float32 last-position logits of every step (prefill first) and the
+    tokens fed."""
+    import torch
+    from repro_torch.core.spe import _merge_prefill_cache
+    B, S = toks.shape
+    lg, pc = model.prefill(toks)
+    cache = _merge_prefill_cache(
+        model.init_cache(B, S + steps + 1, torch.float32), pc, S)
+    logits, fed = [lg[:, -1].float()], []
+    for i in range(steps):
+        tok = (feed[i].to(toks.device) if feed is not None
+               else torch.argmax(logits[-1], -1))
+        fed.append(tok)
+        lg, cache = model.decode_step(cache, tok[:, None], S + i)
+        logits.append(lg[:, -1].float())
+    return logits, fed
+
+
+def compare_logits(tag, what, got, want, atol=LOGIT_ATOL,
+                   rtol=LOGIT_RTOL) -> tuple[float, int, int]:
+    """Hold each step's logits against the reference's (on the reference's
+    device) within atol + rtol * |x|; returns (max |err|, greedy tokens
+    that agree, tokens)."""
+    import torch
+    worst, agree, total = 0.0, 0, 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        a = a.to(b.device)
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{tag} step {i}: non-finite {what} logits")
+        err = (a - b).abs().max().item()
+        worst = max(worst, err)
+        if not torch.allclose(a, b, atol=atol, rtol=rtol):
+            raise AssertionError(
+                f"{tag} step {i}: {what} logits max |err| {err} "
+                f"(atol {atol}, rtol {rtol})")
+        agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+        total += a.shape[0]
+    return worst, agree, total
+
+
 def phase_c() -> None:
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.spe import _merge_prefill_cache
     from repro_torch.models import Model
     cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=2)
     model = Model(cfg, device="cuda").init_params(
@@ -412,36 +468,12 @@ def phase_c() -> None:
     toks = torch.randint(0, cfg.vocab_size, (MAIN_B, MAIN_S), generator=g,
                          device="cuda")
     steps = 8
-
-    def run(feed=None):
-        lg, pc = model.prefill(toks)
-        cache = _merge_prefill_cache(
-            model.init_cache(MAIN_B, MAIN_S + steps + 1, torch.float32), pc,
-            MAIN_S)
-        logits, fed = [lg[:, -1].float()], []
-        for i in range(steps):
-            tok = (feed[i] if feed is not None
-                   else torch.argmax(logits[-1], -1))
-            fed.append(tok)
-            lg, cache = model.decode_step(cache, tok[:, None], MAIN_S + i)
-            logits.append(lg[:, -1].float())
-        return logits, fed
-
     with plain_attention():
-        plain, fed = run()
-    kern, _ = run(feed=fed)       # same input tokens: compare step by step
-    worst, agree = 0.0, 0
-    for i, (a, b) in enumerate(zip(kern, plain)):
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"[c] step {i}: non-finite kernel logits")
-        err = (a - b).abs().max().item()
-        worst = max(worst, err)
-        if not torch.allclose(a, b, atol=LOGIT_ATOL, rtol=LOGIT_RTOL):
-            raise AssertionError(
-                f"[c] step {i}: kernel vs plain logits max |err| {err} "
-                f"(atol {LOGIT_ATOL}, rtol {LOGIT_RTOL})")
-        agree += int((a.argmax(-1) == b.argmax(-1)).sum())
-    total = len(kern) * MAIN_B
+        plain, fed = greedy_steps(model, toks, steps)
+    # same input tokens: compare step by step
+    kern, _ = greedy_steps(model, toks, steps, feed=fed)
+    worst, agree, total = compare_logits("[c]", "kernel vs plain", kern,
+                                         plain)
     log(f"[c] qwen2-7b full width, 2 layers, bf16: prefill + {steps} decode "
         f"steps, kernels vs plain: logits max |err| {worst} (atol "
         f"{LOGIT_ATOL}, rtol {LOGIT_RTOL}); greedy tokens agree {agree}/"
@@ -450,52 +482,78 @@ def phase_c() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_d() -> dict:
-    import numpy as np
+class observe_serve:
+    """Observe (do not alter) a serve run: wall time of the model build
+    and of each request, and finiteness of every logit tensor.  With
+    ``params`` (a state_dict) the served model loads those values in
+    place of its own seeded draw."""
+
+    def __init__(self, params=None):
+        self.params = params
+        self.walls, self.build_s, self.finite = [], [], []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core.spe import LMGenerateQuery as Q
+        from repro_torch.models import Model
+        self.saved = (Q._build, Q.generate, Q._init_params, Model.prefill,
+                      Model.decode_step)
+        build, gen, _, pre, dec = self.saved
+        obs = self
+
+        def timed_build(q):
+            t0 = time.perf_counter()
+            build(q)
+            torch.cuda.synchronize()
+            obs.build_s.append(time.perf_counter() - t0)
+
+        def timed_gen(q, tokens):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = gen(q, tokens)
+            torch.cuda.synchronize()
+            obs.walls.append(time.perf_counter() - t0)
+            return out
+
+        def checked_pre(m, inputs):
+            lg, c = pre(m, inputs)
+            obs.finite.append(torch.isfinite(lg).all())
+            return lg, c
+
+        def checked_dec(m, cache, inputs, pos):
+            lg, c = dec(m, cache, inputs, pos)
+            obs.finite.append(torch.isfinite(lg).all())
+            return lg, c
+
+        Q._build, Q.generate = timed_build, timed_gen
+        Model.prefill, Model.decode_step = checked_pre, checked_dec
+        if self.params is not None:
+            Q._init_params = lambda q, model: model.load_state_dict(
+                obs.params)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.spe import LMGenerateQuery as Q
+        from repro_torch.models import Model
+        (Q._build, Q.generate, Q._init_params, Model.prefill,
+         Model.decode_step) = self.saved
+
+
+def serve_full(arch: str, params=None):
+    """``repro_torch.launch.serve --arch <arch> --full --device cuda``:
+    N_REQUESTS requests of batch MAIN_B, seq MAIN_S, gen MAIN_GEN through
+    the port's gym, the kernels' launch counts set to 0 just before and
+    read just after.  Returns (engine, sink runtime, observer, engine
+    wall s, launches)."""
     import torch
-    from repro_torch.core.spe import LMGenerateQuery
     from repro_torch.kernels import flash_attention as fa, flash_decode as fd
     from repro_torch.launch import serve
-    from repro_torch.models import Model
-
-    # observe (do not alter) the main path: wall time of the model build
-    # and of each request, and finiteness of every logit tensor
-    walls, build_s, finite = [], [], []
-    orig_build, orig_gen = LMGenerateQuery._build, LMGenerateQuery.generate
-    orig_pre, orig_dec = Model.prefill, Model.decode_step
-
-    def timed_build(self):
-        t0 = time.perf_counter()
-        orig_build(self)
-        torch.cuda.synchronize()
-        build_s.append(time.perf_counter() - t0)
-
-    def timed_gen(self, tokens):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = orig_gen(self, tokens)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        return out
-
-    def pre(self, inputs):
-        lg, c = orig_pre(self, inputs)
-        finite.append(torch.isfinite(lg).all())
-        return lg, c
-
-    def dec(self, cache, inputs, pos):
-        lg, c = orig_dec(self, cache, inputs, pos)
-        finite.append(torch.isfinite(lg).all())
-        return lg, c
-
     args = serve.parse_args([
-        "--arch", "qwen2-7b", "--full", "--device", "cuda",
+        "--arch", arch, "--full", "--device", DEV,
         "--requests", str(N_REQUESTS), "--batch", str(MAIN_B),
         "--seq", str(MAIN_S), "--gen", str(MAIN_GEN)])
-    LMGenerateQuery._build, LMGenerateQuery.generate = timed_build, timed_gen
-    Model.prefill, Model.decode_step = pre, dec
     torch.cuda.reset_peak_memory_stats()
-    try:
+    with observe_serve(params) as obs:
         fa.launches = 0
         fd.launches = 0
         t0 = time.perf_counter()
@@ -503,36 +561,50 @@ def phase_d() -> dict:
         wall = time.perf_counter() - t0
         launches = {"flash_attention": fa.launches,
                     "flash_decode": fd.launches}
-    finally:
-        LMGenerateQuery._build, LMGenerateQuery.generate = (orig_build,
-                                                            orig_gen)
-        Model.prefill, Model.decode_step = orig_pre, orig_dec
+    return eng, sink_rt, obs, wall, launches
 
-    vocab = 152064
+
+def check_responses(tag, sink_rt, vocab, finite) -> None:
+    import numpy as np
+    import torch
     if sink_rt.n_received != N_REQUESTS:
-        raise AssertionError(f"[d] {sink_rt.n_received}/{N_REQUESTS} "
+        raise AssertionError(f"{tag} {sink_rt.n_received}/{N_REQUESTS} "
                              "responses reached the sink")
     for p in sink_rt.payloads:
         gen = np.asarray((p["data"] if "data" in p else p)["generated"])
         if gen.shape != (MAIN_B, MAIN_GEN) or gen.min() < 0 \
                 or gen.max() >= vocab:
-            raise AssertionError(f"[d] bad generation {gen.shape} "
+            raise AssertionError(f"{tag} bad generation {gen.shape} "
                                  f"[{gen.min()}, {gen.max()}]")
     if not bool(torch.stack(finite).all()):
-        raise AssertionError("[d] non-finite logits")
+        raise AssertionError(f"{tag} non-finite logits")
+
+
+def served_query(eng):
+    from repro_torch.core.spe import LMGenerateQuery
+    return next(rt.query for rt in eng.runtimes
+                if isinstance(getattr(rt, "query", None), LMGenerateQuery))
+
+
+def phase_d() -> dict:
+    import torch
+    eng, sink_rt, obs, wall, launches = serve_full("qwen2-7b")
+    vocab = 152064
+    check_responses("[d]", sink_rt, vocab, obs.finite)
     want = {"flash_attention": N_LAYERS * N_REQUESTS,
             "flash_decode": N_LAYERS * (MAIN_GEN - 1) * N_REQUESTS}
     if launches != want:
         raise AssertionError(f"[d] launches {launches}, expected {want}")
     splits = decode_splits()
-    profile_request(eng, walls)
+    rows = profile_request("[d]", eng, obs.walls)
+    attention_kernel_check(rows)
     m = eng.metrics()
     e2e = eng.monitor.e2e_latency()
     log(f"[d] qwen2-7b full width (28 layers, d=3584, vocab {vocab}, bf16 "
         f"params): {sink_rt.n_received}/{N_REQUESTS} responses, launches "
         f"{launches}")
-    log(f"[d] model build {build_s[0]:.3f} s; wall per request (batch "
-        f"{MAIN_B}, seq {MAIN_S}, gen {MAIN_GEN}) {walls} s; engine run "
+    log(f"[d] model build {obs.build_s[0]:.3f} s; wall per request (batch "
+        f"{MAIN_B}, seq {MAIN_S}, gen {MAIN_GEN}) {obs.walls} s; engine run "
         f"{wall:.3f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[d] flash_decode split count by decode position {splits}: "
@@ -541,6 +613,9 @@ def phase_d() -> dict:
     log("[d] metrics " + json.dumps(
         {k: v for k, v in m.items() if not isinstance(v, (dict, list))},
         sort_keys=True, default=str))
+    del eng, sink_rt, obs
+    gc.collect()           # the engine's closures form cycles
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -560,17 +635,23 @@ def decode_splits() -> dict:
     return splits
 
 
-def profile_request(eng, walls) -> None:
+def device_rows(prof) -> list:
+    """(device ms, calls, name) of each kernel in a profile: kernel rows
+    only, since an operator's row repeats its kernels' time."""
+    import torch
+    return [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_request(tag, eng, walls) -> list:
     """One more request through the served query under torch.profiler:
     the device's busy time by kernel against the request's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.spe import LMGenerateQuery
-    query = next(rt.query for rt in eng.runtimes
-                 if isinstance(getattr(rt, "query", None), LMGenerateQuery))
-    g = torch.Generator(device="cuda").manual_seed(2)
-    toks = torch.randint(0, 512, (MAIN_B, MAIN_S), generator=g,
-                         device="cuda")
+    query = served_query(eng)
+    g = torch.Generator(device=DEV).manual_seed(2)
+    toks = torch.randint(0, 512, (MAIN_B, MAIN_S), generator=g, device=DEV)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -578,21 +659,23 @@ def profile_request(eng, walls) -> None:
         query.generate(toks)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernel rows only: an operator's row repeats its kernels' time
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows)
     steady = statistics.median(walls[1:]) * 1e3
-    log(f"[d] profiled request: wall {wall_ms:.3f} ms (unprofiled median "
+    log(f"{tag} profiled request: wall {wall_ms:.3f} ms (unprofiled median "
         f"{steady:.3f} ms), {sum(r[1] for r in rows)} kernels, device busy "
         f"{busy_ms:.3f} ms: idle share {1 - busy_ms / steady:.4f} of the "
         f"unprofiled wall")
     for ms, n, key in sorted(rows, reverse=True)[:8]:
-        log(f"[d]   {ms:.3f} ms device, {n} calls: {key[:90]}")
-    # the request's attention ran through the redesigned kernels: the
-    # tensor-core prefill once per layer, the split decode once per layer
-    # and step, no combine (one split) and no float32 body
+        log(f"{tag}   {ms:.3f} ms device, {n} calls: {key[:90]}")
+    return rows
+
+
+def attention_kernel_check(rows) -> None:
+    """The profiled request's attention ran through the redesigned
+    kernels: the tensor-core prefill once per layer, the split decode
+    once per layer and step, no combine (one split) and no float32
+    body."""
     got = {name: [sum(r[1] for r in rows if name in r[2]),
                   sum(r[0] for r in rows if name in r[2])]
            for name in ATTN_KERNELS}
@@ -604,6 +687,320 @@ def profile_request(eng, walls) -> None:
                              f"request {got}, expected {want}")
     log("[d] attention kernels of the profiled request: " + ", ".join(
         f"{name} {n} calls {ms:.3f} ms" for name, (n, ms) in got.items()))
+
+
+# ---------------------------------------------------------------------------
+# (e) xlstm-125m at full width
+# ---------------------------------------------------------------------------
+
+XLSTM = "xlstm-125m"
+LONG_S, LONG_STEPS = 1024, 8    # 8 mLSTM chunks of 128, then 8 decodes
+# float32 logits of the long sequence, card vs CPU (measured 8.7e-5 at
+# S=1024 on an H100; the CPU tests hold whole models at 2e-4)
+F32_TOL = 1e-3
+
+
+def phase_e() -> None:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(XLSTM)
+    # weights drawn once on the CPU from a seed; the card's served model
+    # and the CPU model below hold the same values
+    t0 = time.perf_counter()
+    cpu_model = Model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    draw_s = time.perf_counter() - t0
+    eng, sink_rt, obs, wall, launches = serve_full(
+        XLSTM, cpu_model.state_dict())
+    check_responses("[e]", sink_rt, cfg.vocab_size, obs.finite)
+    if any(launches.values()):
+        raise AssertionError(f"[e] attention kernels launched on the "
+                             f"xLSTM path: {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in cpu_model.parameters())
+    log(f"[e] {XLSTM} full width ({cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads} heads, vocab {cfg.vocab_size}, {n_params} float32 "
+        f"params drawn on the CPU in {draw_s:.3f} s, bf16 compute): "
+        f"{sink_rt.n_received}/{N_REQUESTS} responses; attention kernel "
+        f"launches {launches} (none on this path)")
+    log(f"[e] model build {obs.build_s[0]:.3f} s; wall per request (batch "
+        f"{MAIN_B}, seq {MAIN_S}, gen {MAIN_GEN}) {obs.walls} s, median of "
+        f"requests 2-{N_REQUESTS} {statistics.median(obs.walls[1:])} s; "
+        f"engine run {wall:.3f} s; peak device memory {peak:.3f} GiB")
+    query = served_query(eng)
+    rows = profile_request("[e]", eng, obs.walls)
+    slstm_launch_share(query.model, sum(r[1] for r in rows))
+    del eng, sink_rt, obs, query
+    gc.collect()
+    torch.cuda.empty_cache()
+    long_sequence_check(cpu_model)
+
+
+def slstm_launch_share(model, request_kernels: int) -> None:
+    """Kernels per sLSTM time step (the per-step Python loop), from
+    profiles of one sLSTM block at S=MAIN_S and S=1, and the loop's share
+    of the profiled request's kernels (3 sLSTM layers x (MAIN_S prefill
+    steps + MAIN_GEN - 1 decode steps))."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import xlstm
+    cfg = model.cfg
+    layer = next(i for i, lay in enumerate(cfg.pattern)
+                 if lay.mixer == "slstm")
+    p = model.groups[0][f"l{layer}"]["mixer"]
+    counts = {}
+    for S in (MAIN_S, 1):
+        x = torch.zeros((MAIN_B, S, cfg.d_model), dtype=torch.bfloat16,
+                        device=DEV)
+        xlstm.slstm_apply(p, x, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+            xlstm.slstm_apply(p, x, cfg)
+            torch.cuda.synchronize()
+        counts[S] = sum(r[1] for r in device_rows(prof))
+    per_step = (counts[MAIN_S] - counts[1]) / (MAIN_S - 1)
+    n_slstm = sum(layer.mixer == "slstm" for layer in cfg.pattern) \
+        * cfg.n_groups
+    loop = n_slstm * (MAIN_S + MAIN_GEN - 1) * per_step
+    log(f"[e] sLSTM block kernels: {counts[MAIN_S]} at S={MAIN_S}, "
+        f"{counts[1]} at S=1: {per_step} per time step; the per-step loop "
+        f"is {loop:.0f} of the request's {request_kernels} kernels "
+        f"(share {loop / request_kernels:.4f})")
+
+
+def long_sequence_check(cpu_model) -> None:
+    """One prefill of LONG_S tokens (batch 1) plus LONG_STEPS decode
+    steps, with the same weights and the same input tokens (the float32
+    CPU run's greedy tokens) on the card and on the CPU.
+
+    In float32 compute the card's logits are held against the CPU's at
+    each step within F32_TOL: that compares the two devices' code paths
+    without bf16 rounding.  In bf16 compute (the served configuration)
+    both devices are printed against the float32 CPU logits; their
+    roundings differ by more than LOGIT_ATOL, so there only finite logits
+    are required."""
+    import torch
+    from repro_torch.models import Model
+    params = cpu_model.state_dict()
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cpu_model.cfg.vocab_size, (1, LONG_S),
+                         generator=g)
+    runs, walls, fed = {}, {}, None
+    for compute, dev in (("float32", "cpu"), ("float32", DEV),
+                         ("bfloat16", "cpu"), ("bfloat16", DEV)):
+        model = Model(dataclasses.replace(cpu_model.cfg,
+                                          compute_dtype=compute), device=dev)
+        model.load_state_dict(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, fed_here = greedy_steps(model, toks.to(dev), LONG_STEPS,
+                                        feed=fed)
+        torch.cuda.synchronize()
+        walls[compute, dev] = time.perf_counter() - t0
+        runs[compute, dev] = [x.cpu() for x in logits]
+        fed = fed or fed_here
+        del model
+    ref = runs["float32", "cpu"]
+    worst, agree, total = compare_logits(
+        "[e]", "float32 card vs CPU", runs["float32", DEV], ref,
+        atol=F32_TOL, rtol=F32_TOL)
+    log(f"[e] long sequence, batch 1, prefill S={LONG_S} ({LONG_S // 128} "
+        f"mLSTM chunks of 128) + {LONG_STEPS} decode steps, same weights "
+        f"and tokens: float32 compute, card vs CPU: logits max |err| "
+        f"{worst} (atol = rtol = {F32_TOL}); greedy tokens agree {agree}/"
+        f"{total}; wall card {walls['float32', DEV]:.3f} s, CPU "
+        f"{walls['float32', 'cpu']:.3f} s")
+    for dev in (DEV, "cpu"):
+        got = runs["bfloat16", dev]
+        if not all(bool(torch.isfinite(x).all()) for x in got):
+            raise AssertionError(f"[e] non-finite bf16 logits on {dev}")
+        err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                    for a, b in zip(got, ref))
+        log(f"[e]   bf16 compute on {dev} vs float32 on the CPU: logits max "
+            f"|err| {err}; greedy tokens agree {agree}/{total}; wall "
+            f"{walls['bfloat16', dev]:.3f} s")
+    err = max((a - b).abs().max().item() for a, b in
+              zip(runs["bfloat16", DEV], runs["bfloat16", "cpu"]))
+    log(f"[e]   bf16 compute, card vs CPU: logits max |err| {err} (no "
+        f"gate: the two roundings differ by more than {LOGIT_ATOL})")
+
+
+# ---------------------------------------------------------------------------
+# (f) the paper's applications on the card
+# ---------------------------------------------------------------------------
+
+APP_RTOL = {"sentiment": 1e-6, "ride_select": 1e-6, "fraud_svm": 1e-5,
+            "traffic_metrics": 1e-6}
+OCAMPO_USERS = (20, 40, 60, 80, 100)
+OCAMPO_HORIZON = 30.0   # the benchmark's own horizon (s of sim time)
+
+
+def app_spec(query, device, **cfg):
+    """The topology of tests/test_engine_apps.py: a broker, one SPE
+    running ``query`` on ``device``, a METRICS sink on its output."""
+    from repro_torch.core import PipelineSpec
+    spec = PipelineSpec(mode="zk")
+    spec.add_switch("s1")
+    for h in ("b", "w", "c"):
+        spec.add_host(h).add_link(h, "s1", lat=1.0, bw=1000.0)
+    spec.add_broker("b")
+    spec.add_topic(cfg["inTopic"], leader="b")
+    spec.add_topic(cfg["outTopic"], leader="b")
+    spec.add_spe("w", query=query, device=device, **cfg)
+    sink = spec.add_consumer("c", "METRICS", topic=cfg["outTopic"],
+                             pollInterval=0.05)
+    return spec, sink
+
+
+def run_app(name, device):
+    """One application pipeline; returns (engine, sink payloads)."""
+    import numpy as np
+    from repro_torch.core import Engine
+    from repro_torch.core import store
+    store.reset_registry()
+    rows, horizon = [], 10.0
+    if name == "sentiment":
+        spec, sink = app_spec("sentiment", device, inTopic="tweets",
+                              outTopic="scores")
+        spec.add_host("p").add_link("p", "s1", lat=1.0, bw=1000.0)
+        spec.add_producer("p", "DIRECTORY", topic="tweets",
+                          docs=["good great love", "terrible awful bad"],
+                          totalMessages=2, interval=0.2)
+    elif name == "ride_select":
+        spec, sink = app_spec("ride_select", device, inTopic="rides",
+                              outTopic="best", window=1.0)
+        rows = [{"area": "A", "tip": 1.0}, {"area": "B", "tip": 5.0},
+                {"area": "B", "tip": 7.0}, {"area": "A", "tip": 2.0}]
+        horizon = 8.0
+    elif name == "fraud_svm":
+        spec, sink = app_spec("fraud_svm", device, inTopic="txn",
+                              outTopic="fraud", window=1.0, dim=8)
+        rng = np.random.default_rng(1)
+        rows = ([{"x": rng.normal(0, 1, 8).tolist()} for _ in range(10)]
+                + [{"x": rng.normal(2.5, 1, 8).tolist()} for _ in range(5)])
+    else:
+        spec, sink = app_spec("traffic_metrics", device, inTopic="pkts",
+                              outTopic="stats", window=1.0,
+                              pollInterval=0.2)
+        for i in range(6):
+            spec.add_host(f"u{i}").add_link(f"u{i}", "s1", lat=0.5,
+                                            bw=100.0)
+            spec.add_producer(f"u{i}", "PACKET", topic="pkts",
+                              ratePps=20.0, pktBytes=256)
+        horizon = 6.0
+    eng = Engine(spec, seed=0)
+    if rows:   # injected straight through the broker, as the tests do
+        in_topic = {"ride_select": "rides", "fraud_svm": "txn"}[name]
+        eng.schedule(0.1, lambda: [
+            eng.cluster.produce("b", "t", in_topic, r, 64) for r in rows])
+    eng.run(until=horizon)
+    rt = [rt for rt in eng.runtimes if rt.name == sink.name][0]
+    return eng, [p.get("data", p) for p in rt.payloads]
+
+
+def check_c3(path, got, want, rtol) -> None:
+    """ROADMAP C3: same structure; ints, strings and bools exact; floats
+    allclose at rtol with atol = rtol (the summed terms are of order 1)."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            raise AssertionError(f"[f] {path}: keys differ")
+        for k in want:
+            check_c3(f"{path}.{k}", got[k], want[k], rtol)
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"[f] {path}: lengths differ")
+        for i, (a, b) in enumerate(zip(got, want)):
+            check_c3(f"{path}[{i}]", a, b, rtol)
+    elif isinstance(want, float):
+        if not (isinstance(got, float)
+                and abs(got - want) <= rtol + rtol * abs(want)):
+            raise AssertionError(f"[f] {path}: card {got} vs CPU {want} "
+                                 f"(rtol = atol = {rtol})")
+    elif type(got) is not type(want) or got != want:
+        raise AssertionError(f"[f] {path}: card {got} vs CPU {want}")
+
+
+def wall_free(m: dict) -> dict:
+    return {k: v for k, v in m.items()
+            if k not in ("wall_s", "profile_wall")}
+
+
+def ocampo(n_users: int, horizon: float, device: str):
+    """The Ocampo scenario of benchmarks/fig7_reproductions.py (spec
+    copied): a broker, a one-node SPE running traffic_metrics over 1 s
+    windows, n_users packet generators at 20 packets/s.  Returns the
+    measured ``spe_exec`` walls and the records of each window."""
+    from repro_torch.core import Engine, PipelineSpec
+    spec = PipelineSpec()
+    spec.add_switch("s1")
+    spec.add_host("b").add_link("b", "s1", lat=0.5, bw=1000.0)
+    spec.add_broker("b")
+    spec.add_topic("pkts", leader="b")
+    spec.add_host("spark").add_link("spark", "s1", lat=0.5, bw=1000.0)
+    spec.add_spe("spark", query="traffic_metrics", inTopic="pkts",
+                 window=1.0, pollInterval=0.2, device=device)
+    for i in range(n_users):
+        h = f"u{i}"
+        spec.add_host(h).add_link(h, "s1", lat=0.5, bw=100.0)
+        spec.add_producer(h, "PACKET", topic="pkts", ratePps=20.0,
+                          pktBytes=256)
+    eng = Engine(spec, seed=n_users)
+    mon = eng.run(until=horizon)
+    ex = mon.events_of("spe_exec")
+    return [e["wall"] for e in ex], [e["records"] for e in ex]
+
+
+def phase_f() -> None:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as fa, flash_decode as fd
+    t_start = time.perf_counter()
+    for name in APP_RTOL:
+        fa.launches = 0
+        fd.launches = 0
+        card_eng, card = run_app(name, DEV)
+        if fa.launches or fd.launches:
+            raise AssertionError(f"[f] {name}: attention kernels launched")
+        cpu_eng, cpu = run_app(name, "cpu")
+        if not cpu:
+            raise AssertionError(f"[f] {name}: no output on the CPU")
+        check_c3(name, card, cpu, APP_RTOL[name])
+        if wall_free(card_eng.metrics()) != wall_free(cpu_eng.metrics()):
+            raise AssertionError(f"[f] {name}: engine metrics differ "
+                                 "between the card and the CPU")
+        log(f"[f] {name}: {len(card)} sink payloads on the card agree with "
+            f"the CPU's (rtol = atol = {APP_RTOL[name]}); attention kernel "
+            f"launches 0 (none on this path); first: "
+            f"{json.dumps(card[0], default=str)[:160]}")
+    # the device path really ran: kernels of one traffic pipeline
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_app("traffic_metrics", DEV)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    if not rows:
+        raise AssertionError("[f] no kernel ran on the card")
+    log(f"[f] traffic_metrics pipeline (6 users, 6 s): "
+        f"{sum(r[1] for r in rows)} kernels, device busy "
+        f"{sum(r[0] for r in rows):.3f} ms")
+    base = None
+    for n in OCAMPO_USERS:
+        walls, records = ocampo(n, OCAMPO_HORIZON, DEV)
+        if not walls:
+            raise AssertionError(f"[f] ocampo {n} users: no window ran")
+        # fig7_reproductions.ocampo: the mean after the first two windows
+        mean = float(np.mean(walls[2:]) if len(walls) > 4
+                     else np.mean(walls))
+        base = base or mean
+        log(f"[f] fig7b ocampo users={n}: {len(walls)} windows, mean "
+            f"spe_exec wall {mean} s ({mean / base:.3f} x 20 users), "
+            f"records per window {int(np.mean(records))}")
+    log(f"[f] horizon {OCAMPO_HORIZON} s of sim time (not cut); phase "
+        f"wall {time.perf_counter() - t_start:.1f} s")
 
 
 def main() -> int:
@@ -623,6 +1020,8 @@ def main() -> int:
     times = phase_b(rnd)
     phase_c()
     launches = phase_d()
+    phase_e()
+    phase_f()
     kernels = []
     for name, src, replaces, design in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",

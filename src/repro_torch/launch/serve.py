@@ -3,10 +3,11 @@
 Counterpart of ``repro/launch/serve.py`` with the same spec and flags,
 plus ``--device`` and ``--full``.  Request producers stream token batches
 into a broker topic; an SPE node runs prefill + greedy decode on the
-model (on the card through the hand-written CUDA attention kernels);
-generated tokens flow to a response topic consumed by the client sink.
+model (attention layers on the card through the hand-written CUDA
+kernels); generated tokens flow to a response topic consumed by the
+client sink.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
       --requests 4 --batch 4 --seq 64 --gen 8 --full
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 """
@@ -43,9 +44,7 @@ def build_spec(args) -> tuple[PipelineSpec, object]:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
-    # the reference defaults to xlstm-125m; xlstm is not ported yet
-    # (ROADMAP A6), so the port defaults to qwen2-7b until it is
-    p.add_argument("--arch", default="qwen2-7b")
+    p.add_argument("--arch", default="xlstm-125m")
     p.add_argument("--requests", type=int, default=12)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--seq", type=int, default=64)

@@ -9,15 +9,16 @@ index like dicts (``p["wq"]``), so the layer functions take a module or a
 plain dict of tensors alike.
 
 Initializers mirror ``dense_init`` / ``embed_init`` / ``zeros`` / ``ones``
-(``params.py:66-81``): the same distributions, drawn from a
-``torch.Generator`` on the target device.  A torch generator gives other
-numbers than a JAX key, so parity tests load the reference's values with
-:func:`from_jax_params` instead.
+(``params.py:66-81``) and the xLSTM constants: the same distributions
+and leaf dtypes, drawn from a ``torch.Generator`` on the target device.
+A torch generator gives other numbers than a JAX key, so parity tests
+load the reference's values with :func:`from_jax_params` instead.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,47 +40,67 @@ def dtype_of(name: str) -> torch.dtype:
 
 @dataclass(frozen=True)
 class Init:
-    """A leaf to be created: its shape and how it is drawn."""
+    """A leaf to be created: its shape, how it is drawn, and its dtype.
+
+    ``dtype`` None takes the tree's ``param_dtype``; the reference keeps
+    some leaves in float32 whatever that is (the xLSTM gate biases and
+    recurrent weights).  ``scale`` replaces a dense leaf's
+    ``1/sqrt(fan_in)``.  A ``const`` leaf is split along its first axis
+    into ``len(values)`` equal blocks, block ``j`` filled with
+    ``values[j]``.
+    """
 
     shape: tuple
-    kind: str  # dense | embed | zeros | ones
+    kind: str  # dense | embed | const
+    dtype: Optional[str] = None
+    scale: Optional[float] = None
+    values: tuple = ()
 
 
-def dense_init(shape) -> Init:
-    return Init(tuple(shape), "dense")
+def dense_init(shape, dtype: Optional[str] = None,
+               scale: Optional[float] = None) -> Init:
+    return Init(tuple(shape), "dense", dtype, scale)
 
 
 def embed_init(shape) -> Init:
     return Init(tuple(shape), "embed")
 
 
-def zeros_init(shape) -> Init:
-    return Init(tuple(shape), "zeros")
+def const_init(shape, *values: float, dtype: Optional[str] = None) -> Init:
+    return Init(tuple(shape), "const", dtype, values=tuple(values))
 
 
-def ones_init(shape) -> Init:
-    return Init(tuple(shape), "ones")
+def zeros_init(shape, dtype: Optional[str] = None) -> Init:
+    return const_init(shape, 0.0, dtype=dtype)
 
 
-def draw_(p: torch.Tensor, kind: str, gen: torch.Generator) -> None:
+def ones_init(shape, dtype: Optional[str] = None) -> Init:
+    return const_init(shape, 1.0, dtype=dtype)
+
+
+def draw_(p: torch.Tensor, init: Init, gen: torch.Generator) -> None:
     """Fill ``p`` in place with its initializer's distribution.
 
-    dense: N(0, 1) / sqrt(fan_in), fan_in = shape[0] (1 for vectors);
-    embed: N(0, 1) * 0.02; zeros; ones.  Normals are drawn in float32 and
-    then cast, as the reference does.
+    dense: N(0, 1) * scale, scale = 1 / sqrt(fan_in) unless given, fan_in
+    = shape[0] (1 for vectors); embed: N(0, 1) * 0.02; const: the blocks
+    of ``init.values``.  Normals are drawn in float32 and then cast, as
+    the reference does.
     """
-    if kind in ("dense", "embed"):
+    if init.kind in ("dense", "embed"):
         x = torch.randn(p.shape, generator=gen, device=p.device,
                         dtype=torch.float32)
-        fan_in = p.shape[0] if p.dim() >= 2 else 1
-        x *= 0.02 if kind == "embed" else 1.0 / math.sqrt(fan_in)
+        if init.kind == "embed":
+            x *= 0.02
+        else:
+            fan_in = p.shape[0] if p.dim() >= 2 else 1
+            x *= (init.scale if init.scale is not None
+                  else 1.0 / math.sqrt(fan_in))
         p.copy_(x)
-    elif kind == "zeros":
-        p.zero_()
-    elif kind == "ones":
-        p.fill_(1.0)
+    elif init.kind == "const":
+        for block, value in zip(p.chunk(len(init.values)), init.values):
+            block.fill_(value)
     else:
-        raise ValueError(kind)
+        raise ValueError(init.kind)
 
 
 class ParamTree(nn.Module):
@@ -89,10 +110,11 @@ class ParamTree(nn.Module):
         super().__init__()
         for name, node in spec.items():
             if isinstance(node, Init):
-                p = nn.Parameter(torch.empty(node.shape, dtype=dtype,
+                leaf_dtype = dtype_of(node.dtype) if node.dtype else dtype
+                p = nn.Parameter(torch.empty(node.shape, dtype=leaf_dtype,
                                              device=device),
                                  requires_grad=False)
-                p.init_kind = node.kind
+                p.init = node
                 self.register_parameter(name, p)
             elif isinstance(node, dict):
                 self.add_module(name, ParamTree(node, dtype, device))
@@ -109,7 +131,7 @@ class ParamTree(nn.Module):
     def init_params(self, gen: torch.Generator) -> "ParamTree":
         """Draw every leaf, in registration order, from ``gen``."""
         for p in self.parameters():
-            draw_(p, p.init_kind, gen)
+            draw_(p, p.init, gen)
         return self
 
 

@@ -5,10 +5,10 @@ into ``n_groups`` repetitions of the config's layer ``pattern``, as in
 the reference; the reference scans over the stacked group axis, the port
 loops over an unrolled ``ModuleList`` (``groups.<i>.l<j>...``).
 
-This slice covers the dense families: mixers ``attn`` / ``attn_local``
-and ffn ``mlp``.  The other mixers and ``moe`` raise
-``NotImplementedError`` naming their ROADMAP item.  Serving only:
-``prefill``, ``decode_step`` and ``init_cache`` (training is ROADMAP A8).
+Mixers ``attn`` / ``attn_local`` / ``mlstm`` / ``slstm`` and ffn ``mlp``
+are ported; ``mamba`` and ``moe`` raise ``NotImplementedError`` naming
+their ROADMAP item.  Serving only: ``prefill``, ``decode_step`` and
+``init_cache`` (training is ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -19,10 +19,10 @@ import torch
 from repro_torch.configs.base import ArchConfig, Layer
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.params import ParamTree, dtype_of, resolve_device
 
-_NOT_PORTED = {"mlstm": "A6 (xlstm)", "slstm": "A6 (xlstm)",
-               "mamba": "A9 (ssm)", "moe": "A9 (moe)"}
+_NOT_PORTED = {"mamba": "A9 (ssm)", "moe": "A9 (moe)"}
 
 
 def _not_ported(kind: str):
@@ -45,6 +45,10 @@ def init_layer(cfg: ArchConfig, layer: Layer) -> dict:
     p: dict = {"norm1": L.init_rmsnorm(cfg.d_model)}
     if layer.mixer in ("attn", "attn_local"):
         p["mixer"] = attn_mod.init_attn(cfg)
+    elif layer.mixer == "mlstm":
+        p["mixer"] = xlstm_mod.init_mlstm(cfg)
+    elif layer.mixer == "slstm":
+        p["mixer"] = xlstm_mod.init_slstm(cfg)
     else:
         raise _not_ported(layer.mixer)
     if cfg.post_norm:
@@ -65,17 +69,24 @@ def layer_apply(p, x, cfg: ArchConfig, layer: Layer, *, mode: str,
                 cache_pos: Optional[int] = None):
     """mode: prefill | decode.  Returns (x, new_cache)."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, zero_centered=_zc(cfg))
-    if layer.mixer not in ("attn", "attn_local"):
-        raise _not_ported(layer.mixer)
-    local = layer.mixer == "attn_local"
-    if mode == "decode":
-        h, new_mixer_cache = attn_mod.attn_apply(
-            p["mixer"], h, cfg, local=local, cache=cache["mixer"],
-            cache_pos=cache_pos)
+    mixer_cache = cache["mixer"] if mode == "decode" else None
+    if layer.mixer in ("attn", "attn_local"):
+        local = layer.mixer == "attn_local"
+        if mode == "decode":
+            h, new_mixer_cache = attn_mod.attn_apply(
+                p["mixer"], h, cfg, local=local, cache=mixer_cache,
+                cache_pos=cache_pos)
+        else:
+            h, new_mixer_cache = attn_mod.attn_apply(
+                p["mixer"], h, cfg, local=local, positions=positions,
+                return_kv=mode == "prefill")
+    elif layer.mixer in ("mlstm", "slstm"):
+        apply = (xlstm_mod.mlstm_apply if layer.mixer == "mlstm"
+                 else xlstm_mod.slstm_apply)
+        h, new_mixer_cache = apply(p["mixer"], h, cfg, cache=mixer_cache,
+                                   return_state=mode == "prefill")
     else:
-        h, new_mixer_cache = attn_mod.attn_apply(
-            p["mixer"], h, cfg, local=local, positions=positions,
-            return_kv=mode == "prefill")
+        raise _not_ported(layer.mixer)
 
     if cfg.post_norm:
         h = L.rmsnorm(p["post_norm1"], h, cfg.norm_eps, zero_centered=_zc(cfg))
@@ -173,7 +184,8 @@ class Model(ParamTree):
     def decode_step(self, cache, inputs, pos: int):
         """inputs: (B,1) tokens or (B,1,D) embeds; pos: int.
 
-        Writes position ``pos`` of ``cache`` in place; returns
+        Writes position ``pos`` of the attention caches in place; the
+        recurrent (xLSTM) states come back as new tensors.  Returns
         (logits, cache).
         """
         cfg = self.cfg
@@ -193,10 +205,16 @@ class Model(ParamTree):
         cfg = self.cfg
 
         def layer_cache(layer: Layer):
-            if layer.mixer not in ("attn", "attn_local"):
-                raise _not_ported(layer.mixer)
-            return {"mixer": attn_mod.init_attn_cache(
-                cfg, batch, max_len, dtype, self.device)}
+            if layer.mixer in ("attn", "attn_local"):
+                return {"mixer": attn_mod.init_attn_cache(
+                    cfg, batch, max_len, dtype, self.device)}
+            if layer.mixer == "mlstm":
+                return {"mixer": xlstm_mod.init_mlstm_cache(
+                    cfg, batch, dtype, self.device)}
+            if layer.mixer == "slstm":
+                return {"mixer": xlstm_mod.init_slstm_cache(
+                    cfg, batch, dtype, self.device)}
+            raise _not_ported(layer.mixer)
 
         return [{f"l{i}": layer_cache(layer)
                  for i, layer in enumerate(cfg.pattern)}

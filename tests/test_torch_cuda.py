@@ -8,7 +8,8 @@ Each kernel is held against its plain torch version (``kernels/ref.py``)
 on the same card tensors: float32 atol = rtol = 2e-5, bfloat16 2e-2 (the
 bars of ``tests/test_kernels.py``).  Whole smoke models on the card (the
 kernels) are held against the same parameters on the CPU (the
-reference's XLA paths) at 2e-4, the bar of ``tests/test_models.py``.
+reference's XLA paths) at 2e-4, the bar of ``tests/test_models.py``; so
+are the xLSTM smoke model and the application queries (ROADMAP C3).
 """
 import numpy as np
 import pytest
@@ -220,3 +221,61 @@ def test_model_on_card_matches_cpu_paths(arch, cuda):
                                           before[1] + n_attn)
     for a, b in zip(*outs):
         torch.testing.assert_close(b, a, atol=2e-4, rtol=2e-4)
+
+
+def test_xlstm_on_card_matches_cpu(cuda):
+    """Two mLSTM chunks of 128 and 256 sLSTM steps in prefill, then three
+    decode steps; no attention kernel runs on this path."""
+    cfg = reduce_for_smoke(get_config("xlstm-125m"))
+    cpu = Model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 256)))
+    before = (fa.launches, fd.launches)
+    outs = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        lg, pc = model.prefill(toks.to(dev))
+        cache = _merge_prefill_cache(model.init_cache(2, 264, torch.float32),
+                                     pc, 256)
+        steps = [lg.cpu()]
+        for i in range(3):
+            lg, cache = model.decode_step(cache, toks[:, i:i + 1].to(dev),
+                                          256 + i)
+            steps.append(lg.cpu())
+        outs.append(steps)
+    assert (fa.launches, fd.launches) == before
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, atol=2e-4, rtol=2e-4)
+
+
+class _R:
+    def __init__(self, payload):
+        self.payload = payload
+        self.size = 64
+
+
+@pytest.mark.parametrize("name,rows", [
+    ("ride_select", [{"area": f"a{i % 7}", "tip": 0.37 * i}
+                     for i in range(100)]),
+    ("traffic_metrics", [{"service": ["ftp", "web", "dns", "mail"][i % 4],
+                          "bytes": 40 + 13 * i} for i in range(77)]),
+    ("fraud_svm", [{"x": np.random.default_rng(i).normal(
+        1.2, 1.5, 8).tolist()} for i in range(21)]),
+])
+def test_app_queries_on_card_match_cpu(name, rows, cuda):
+    """ROADMAP C3: counts and argmax exact, floats allclose (rtol 1e-6,
+    1e-5 for the SVM, atol equal to rtol)."""
+    from repro_torch.core.spe import QUERIES
+    from repro_torch.core.spec import Component
+    out = {}
+    for dev in ("cpu", "cuda"):
+        q = QUERIES[name](Component("spe", "JAXSTREAM", {"device": dev},
+                                    name="spe_t"))
+        assert q.device.type == dev
+        [(out[dev], _)] = q(None, None, [_R(r) for r in rows])
+    if name == "ride_select":   # the argmax, by name
+        assert out["cuda"].pop("best_area") == out["cpu"].pop("best_area")
+    tol = 1e-5 if name == "fraud_svm" else 1e-6
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=tol, rtol=tol)

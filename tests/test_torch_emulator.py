@@ -130,8 +130,7 @@ def test_float_window_aggregates_allclose(agg):
         np.testing.assert_allclose(a["value"], b["value"], rtol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["sentiment", "ride_select", "fraud_svm",
-                                  "traffic_metrics", "lm_train"])
+@pytest.mark.parametrize("name", ["lm_train"])
 def test_unported_queries_raise(name):
     spec = tcore.PipelineSpec()
     spec.add_switch("s1")

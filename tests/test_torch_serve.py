@@ -1,8 +1,9 @@
 """LM serving through the gym, port against reference, and the port's
 import hygiene.
 
-The serve spec of ``launch/serve.py`` (qwen2-7b at smoke size, float32)
-runs in both packages under the same seed, with the reference's
+The serve spec of ``launch/serve.py`` (qwen2-7b and the default
+xlstm-125m, at smoke size, float32) runs in both packages under the same
+seed, with the reference's
 parameters injected into the port's query.  The generated token lists
 and every non-wall ``Engine.metrics()`` field must be equal: both runs
 are live, never the pinned metrics of ``tests/test_metrics_pin.py``
@@ -33,7 +34,7 @@ WALL_KEYS = ("wall_s", "profile_wall")
 
 
 def serve_args(**kw):
-    a = dict(arch="qwen2-7b", requests=3, batch=3, seq=12, gen=5,
+    a = dict(arch="xlstm-125m", requests=3, batch=3, seq=12, gen=5,
              interval=0.5, lat=1.0, bw=1000.0, mode="kraft", seed=0,
              device="cpu", full=False)
     a.update(kw)
@@ -52,16 +53,17 @@ def run(engine_cls, build_spec, args):
     return eng, [rt for rt in eng.runtimes if rt.name == sink.name][0]
 
 
-def test_gym_serve_matches_reference(monkeypatch):
+@pytest.mark.parametrize("arch", ["qwen2-7b", "xlstm-125m"])
+def test_gym_serve_matches_reference(monkeypatch, arch):
     """batch 3 is bucket-padded to 4 on both sides (jit_bucket)."""
     def jax_params(self, model):
-        tree = JModel(jreduce(jget("qwen2-7b"))).init_params(
+        tree = JModel(jreduce(jget(arch))).init_params(
             jax.random.key(0))     # what the reference query draws
         model.load_state_dict(from_jax_params(
             model.cfg, jax.tree.map(np.asarray, tree)))
 
     monkeypatch.setattr(LMGenerateQuery, "_init_params", jax_params)
-    args = serve_args()
+    args = serve_args(arch=arch)
     jeng, jsink = run(JEngine, jserve.build_spec, args)
     teng, tsink = run(Engine, serve.build_spec, args)
     want = generations(jsink)
@@ -77,7 +79,7 @@ def test_serve_cli_on_cpu(capsys):
     serve.main(["--device", "cpu", "--requests", "2", "--seq", "8",
                 "--gen", "3"])
     out = capsys.readouterr().out
-    assert "qwen2-7b: 2/2 responses" in out
+    assert "xlstm-125m: 2/2 responses" in out
 
 
 # ---------------------------------------------------------------------------
@@ -149,3 +151,14 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "assert not _build._libs\n"
         "print('OK', flash_attention.launches, flash_decode.launches)\n")
     assert "OK 0 0" in out
+
+
+def test_emulator_imports_without_torch():
+    """``repro_torch.core`` imports torch only inside query bodies (the
+    emulator's import contract, ROADMAP "Import hygiene")."""
+    out = _run_python(
+        "import sys\n"
+        "import repro_torch.core, repro_torch.core.spe\n"
+        "from repro_torch.kernels import cohort, netcalc\n"
+        "print('TORCH', 'torch' in sys.modules)\n")
+    assert "TORCH False" in out
