@@ -34,7 +34,19 @@ Phases, each of which raises on failure:
          traffic metrics) through the gym with their tensor compute on the
          card, held against the same pipelines on the CPU (ROADMAP C3),
          then the Ocampo scenario of Fig. 7b at 20-100 users on the card,
-         printing the mean measured SPE wall per window.
+         printing the mean measured SPE wall per window;
+  (g)    training on the card: (g1) flash_attention as an autograd
+         function (one kernel launch per forward, grads equal to autograd
+         through ref.attention) at the kernel cases and gemma2-2b's
+         training shapes; (g2) loss and gradients of a 2-layer full-width
+         gemma2-2b, kernel vs plain; (g3) the slice's main path,
+         ``repro_torch.launch.train --arch gemma2-2b --steps 6 --batch 4
+         --seq 1024`` (26 layers, bf16, float32 AdamW, remat full) with
+         flash_attention launches per step, wall per step, tokens/s, peak
+         memory, model FLOPs share and one profiled step; (g4) an injected
+         failure and a checkpoint restore on the card (smoke xlstm-125m,
+         qwen2-7b) against an unbroken run; (g5) gym training of
+         xlstm-125m at full width (``--gym --full``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -45,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1003,6 +1016,411 @@ def phase_f() -> None:
         f"wall {time.perf_counter() - t_start:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# (g) training on the card
+# ---------------------------------------------------------------------------
+
+GEMMA = "gemma2-2b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 6
+# gemma2-2b training attention: q (4,1024,8,256), k/v 4 heads, softcap 50;
+# window 4096 on the local layers, none on the global ones
+GEMMA_TRAIN = dict(B=TRAIN_B, S=TRAIN_S, NH=8, KV=4, hd=256, cap=50.0)
+GEMMA_WINDOWS = (4096, 0)
+# (g2): loss and gradients of a 2-layer full-width gemma2-2b, the kernel's
+# forward against the plain version's, as (loss rtol, gradient relative L2
+# error per leaf).  bf16 (the trained configuration): the two forwards
+# round each attention output to bf16 at other places (1 ulp, 2**-8
+# relative); that difference passes through ~10 bf16-rounded operations
+# per layer and the tied embedding's two gradient paths, so each leaf's
+# gradient may move by a few per cent.  float32 params and compute (the
+# kernel's float32 body): the kernel agrees with the plain version to
+# ~1e-6 relative, and so do the gradients, up to ~1e-5.  A fault (a cut
+# graph, a wrong scale or mask) moves a gradient by O(1).
+G2_TOL = {"bfloat16": (1e-3, 5e-2), "float32": (1e-5, 1e-4)}
+# (g4): losses after the restart against an unbroken run, float32 smoke
+# configs: the restored state is exact and the replay runs the same
+# kernels on the same inputs
+G4_RTOL = 1e-5
+H100_BF16 = PEAK_FLOPS["bfloat16"]
+
+
+def phase_g1(rnd) -> float:
+    """flash_attention as an autograd function on the card: one kernel
+    launch per forward, the forward within TOL of ref.attention, and the
+    grads of q, k, v equal (exactly) to autograd through ref.attention
+    given the same upstream grad."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ops, ref
+    cases = FWD_CASES + [(GEMMA_TRAIN["B"], GEMMA_TRAIN["S"],
+                          GEMMA_TRAIN["NH"], GEMMA_TRAIN["KV"],
+                          GEMMA_TRAIN["hd"], w, GEMMA_TRAIN["cap"])
+                         for w in GEMMA_WINDOWS]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for (B, S, NH, KV, hd, window, cap) in cases:
+            q, k, v = (rnd(shape, dtype).requires_grad_() for shape in
+                       ((B, S, NH, hd), (B, S, KV, hd), (B, S, KV, hd)))
+            g = rnd((B, S, NH, hd), dtype)
+            scale = hd ** -0.5
+            before = fa.launches
+            out = ops.flash_attention(q, k, v, scale, True, window, cap)
+            plain = ref.attention(q, k, v, scale=scale, window=window,
+                                  softcap=cap)
+            label = f"[g1] {(B, S, NH, KV, hd, window, cap)} {dtype}"
+            err = check_close(label, out.detach(), plain.detach(),
+                              TOL[str(dtype).split(".")[1]])
+            got = torch.autograd.grad(out, (q, k, v), g)
+            want = torch.autograd.grad(plain, (q, k, v), g)
+            if fa.launches != before + 1:
+                raise AssertionError(f"{label}: {fa.launches - before} "
+                                     "kernel launches for one forward")
+            for name, a, b in zip("qkv", got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"{label}: d{name} differs from autograd through "
+                        f"ref.attention by {(a - b).abs().max().item()}")
+            if S == GEMMA_TRAIN["S"] and dtype == torch.bfloat16:
+                worst = max(worst, err)
+    log(f"[g1] {2 * len(cases)} cases (the kernel cases and gemma2-2b's "
+        f"training shapes, float32 and bf16): one launch per forward, "
+        f"forward within TOL of ref.attention (gemma2 training shape bf16 "
+        f"max |err| {worst}), grads of q, k, v equal to autograd through "
+        f"ref.attention bit for bit")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def loss_and_grads(model, batch):
+    import torch
+    params = dict(model.named_parameters())
+    loss, _ = model.loss(batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def train_batch(cfg, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1),
+                         generator=g, device="cuda")
+    return {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def phase_g2() -> None:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config(GEMMA), n_layers=2)
+    weights = Model(cfg, device="cuda").init_params(
+        torch.Generator(device="cuda").manual_seed(0)).state_dict()
+    batch = train_batch(cfg, 1)
+    for dtype, (loss_rtol, grad_rel) in G2_TOL.items():
+        model = Model(dataclasses.replace(cfg, param_dtype=dtype,
+                                          compute_dtype=dtype), device="cuda")
+        model.load_state_dict(weights)
+        model.requires_grad_(True)
+        with plain_attention():
+            loss_p, grads_p = loss_and_grads(model, batch)
+        before = fa.launches
+        loss_k, grads_k = loss_and_grads(model, batch)
+        n = fa.launches - before
+        tag = f"[g2] {dtype}:"
+        if n != 2 * cfg.n_layers:   # remat full: forward and recompute
+            raise AssertionError(f"{tag} {n} kernel launches, expected "
+                                 f"{2 * cfg.n_layers}")
+        if not (torch.isfinite(loss_k) and torch.isfinite(loss_p)):
+            raise AssertionError(f"{tag} non-finite loss {loss_k} / "
+                                 f"{loss_p}")
+        d_loss = abs(loss_k.item() - loss_p.item())
+        if d_loss > loss_rtol * abs(loss_p.item()):
+            raise AssertionError(f"{tag} loss {loss_k.item()} vs plain "
+                                 f"{loss_p.item()} (rtol {loss_rtol})")
+        rel = {}
+        for key, gp in grads_p.items():
+            gk = grads_k[key].float()
+            gp = gp.float()
+            if not torch.isfinite(gk).all():
+                raise AssertionError(f"{tag} non-finite gradient of {key}")
+            rel[key] = ((gk - gp).norm() / gp.norm().clamp(min=1e-30)).item()
+        bad = {k: r for k, r in rel.items() if r > grad_rel}
+        if bad:
+            raise AssertionError(f"{tag} gradients off by more than "
+                                 f"{grad_rel} relative L2: {bad}")
+        for key in ("wq", "wk", "wv"):
+            if grads_k[f"groups.0.l0.mixer.{key}"].abs().max() == 0:
+                raise AssertionError(f"{tag} no gradient reaches {key}")
+        worst = max(rel, key=rel.get)
+        log(f"[g2] {GEMMA} full width, 2 layers (local, global), {dtype} "
+            f"params and compute, batch {TRAIN_B} x {TRAIN_S}, remat full: "
+            f"loss + backward, kernel vs plain: loss {loss_k.item()} vs "
+            f"{loss_p.item()} (|diff| {d_loss}, rtol {loss_rtol}); gradient "
+            f"relative L2 error, worst {rel[worst]} ({worst}), median "
+            f"{statistics.median(rel.values())} over {len(rel)} leaves "
+            f"(gate {grad_rel}); {n} kernel launches")
+        del model, grads_p, grads_k
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+class observe_train:
+    """Observe (do not alter) an ElasticTrainer run: the wall of each step
+    (synchronized), the flash_attention launches of each step, the loss
+    of each step, and a host copy of the parameters before the first."""
+
+    def __init__(self):
+        self.walls, self.launches, self.losses = [], [], []
+        self.before = None
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.runtime import ElasticTrainer
+        self.saved = ElasticTrainer._compile
+        obs = self
+
+        def compile_observed(trainer):
+            obs.saved(trainer)
+            step = trainer._step_fn
+
+            def observed(state, batch):
+                if obs.before is None:
+                    obs.before = {k: p.detach().cpu() for k, p in
+                                  state["params"].state_dict().items()}
+                torch.cuda.synchronize()
+                n0 = fa.launches
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                obs.losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                obs.walls.append(time.perf_counter() - t0)
+                obs.launches.append(fa.launches - n0)
+                return state, metrics
+
+            trainer._step_fn = observed
+
+        ElasticTrainer._compile = compile_observed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.runtime import ElasticTrainer
+        ElasticTrainer._compile = self.saved
+
+
+def phase_g3() -> dict:
+    """The slice's main path: ``python -m repro_torch.launch.train --arch
+    gemma2-2b --steps 6 --batch 4 --seq 1024`` (full width and depth, on
+    the card) in-process, then one profiled step."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, flash_decode as fd
+    from repro_torch.launch import train
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = train.parse_args(["--arch", GEMMA, "--steps", str(TRAIN_STEPS),
+                             "--batch", str(TRAIN_B), "--seq",
+                             str(TRAIN_S)])
+    torch.cuda.reset_peak_memory_stats()
+    with observe_train() as obs:
+        fa.launches = 0
+        fd.launches = 0
+        t0 = time.perf_counter()
+        cfg, trainer, state = train.run(args)
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": fa.launches,
+                    "flash_decode": fd.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # remat full: each attention layer's kernel runs in the forward pass
+    # and again when its group is recomputed in the backward pass; the
+    # backward of the autograd function recomputes through ref.attention
+    # (no kernel)
+    per_step = 2 * cfg.n_layers
+    if obs.launches != [per_step] * TRAIN_STEPS:
+        raise AssertionError(f"[g3] flash_attention launches per step "
+                             f"{obs.launches}, expected {per_step}")
+    if launches != {"flash_attention": per_step * TRAIN_STEPS,
+                    "flash_decode": 0}:
+        raise AssertionError(f"[g3] launches {launches}")
+    losses = trainer.report.losses
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[g3] losses {losses}")
+    changed = total = 0
+    for key, p in state["params"].state_dict().items():
+        ne = int((p.detach().cpu() != obs.before[key]).sum())
+        changed, total = changed + ne, total + p.numel()
+    m_nonzero = sum(int((m != 0).sum()) for m in state["opt"]["m"].values())
+    if changed == 0 or m_nonzero == 0:
+        raise AssertionError(f"[g3] the state did not move: {changed} "
+                             f"parameter entries changed, {m_nonzero} "
+                             "nonzero first moments")
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    tokens = TRAIN_B * TRAIN_S
+    step_s = statistics.median(obs.walls[1:])
+    # 6 N T for the forward and backward passes, + 2 N T for the remat
+    # forward (the trunk's groups and the loss head's chunks)
+    flops = 8.0 * n_params * tokens
+    log(f"[g3] {GEMMA} full width and depth ({cfg.n_layers} layers, d="
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params} bf16 params, "
+        f"float32 AdamW state, remat {cfg.remat}), batch {TRAIN_B} x "
+        f"{TRAIN_S}: losses {losses}; flash_attention launches per step "
+        f"{obs.launches} ({cfg.n_layers} forward + {cfg.n_layers} remat "
+        f"recompute); parameter entries changed {changed}/{total} (lr "
+        f"{3e-4 / 2000:.3g}..{3e-4 * TRAIN_STEPS / 2000:.3g} in the warmup "
+        f"moves only bf16 values near 0); engine wall {wall:.3f} s")
+    log(f"[g3] {gpu_line()}: wall per step {obs.walls} s; median of "
+        f"steps 2-{TRAIN_STEPS} {step_s} s; {tokens / step_s} tokens/s; peak "
+        f"device memory {peak:.3f} GiB; model FLOPs per step {flops:.4g} "
+        f"(8 N T), {flops / step_s / 1e12:.2f} TFLOP/s = "
+        f"{flops / step_s / H100_BF16:.4f} of {H100_BF16:.3g}")
+    profile_train_step(trainer, state, step_s)
+    out = dict(launches=launches["flash_attention"], step_s=step_s,
+               tokens_per_s=tokens / step_s, peak_gib=peak)
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step(trainer, state, step_s) -> None:
+    """One more step under torch.profiler: device time by kernel, the
+    autograd function's backward (ref.attention recomputed and
+    differentiated) and the AdamW update by their ranges, and the idle
+    share against the unprofiled step wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamW
+    saved = (ops._fa_bwd, AdamW.update)
+
+    def ranged(name, fn):
+        def wrapped(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return wrapped
+
+    ops._fa_bwd = ranged("g3.fa_bwd", saved[0])
+    AdamW.update = ranged("g3.adamw", saved[1])
+    batch = trainer.batches(TRAIN_STEPS)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.bundle.step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ops._fa_bwd, AdamW.update = saved
+    # the ranges' own device rows (their spans) are not kernels
+    rows = [r for r in device_rows(prof) if not r[2].startswith("g3.")]
+    busy = sum(r[0] for r in rows)
+    ranges = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("g3."):
+            ranges[e.name] = ranges.get(e.name, 0.0) + \
+                e.device_time_total / 1e3
+    fa_ms = sum(r[0] for r in rows if "fa_fwd" in r[2])
+    gemm = [r for r in rows if any(s in r[2].lower() for s in (
+        "gemm", "nvjet", "xmma", "cutlass"))]
+    gemm_ms = sum(r[0] for r in gemm)
+    log(f"[g3] profiled step: wall {wall_ms:.3f} ms (unprofiled median "
+        f"{step_s * 1e3:.3f} ms), {sum(r[1] for r in rows)} kernels, device "
+        f"busy {busy:.3f} ms: idle share {1 - busy / (step_s * 1e3):.4f} "
+        f"of the unprofiled wall")
+    log(f"[g3]   flash_attention kernel {fa_ms:.3f} ms "
+        f"({sum(r[1] for r in rows if 'fa_fwd' in r[2])} calls); "
+        f"attention backward (ref.attention recomputed and differentiated, "
+        f"float32) {ranges.get('g3.fa_bwd', 0.0):.3f} ms; AdamW update "
+        f"{ranges.get('g3.adamw', 0.0):.3f} ms; GEMM kernels (all, the "
+        f"attention backward's included) {gemm_ms:.3f} ms in "
+        f"{sum(r[1] for r in gemm)} calls; other "
+        f"{busy - fa_ms - gemm_ms:.3f} ms")
+    if ranges.get("g3.fa_bwd", 0.0) <= 0 or ranges.get("g3.adamw", 0.0) <= 0:
+        log("[g3]   (a range shows no device time: the profiler did not "
+            "attribute kernels to it)")
+    for ms, n, key in sorted(rows, reverse=True)[:10]:
+        log(f"[g3]   {ms:.3f} ms device, {n} calls: {key[:90]}")
+
+
+def phase_g4() -> None:
+    """Checkpoint round trip on the card: an injected failure at step 3,
+    a restore from the step-2 checkpoint, the replay; the losses are those
+    of an unbroken run."""
+    import tempfile
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.runtime import ElasticTrainer
+    for arch in ("xlstm-125m", "qwen2-7b"):
+        cfg, bundle, batches = train.build(arch, smoke=True, batch=2,
+                                           seq=64, device=DEV)
+        runs = {}
+        for broken in (True, False):
+            with tempfile.TemporaryDirectory() as tmp:
+                trainer = ElasticTrainer(bundle, batches, ckpt_dir=tmp,
+                                         ckpt_every=2, log_fn=lambda s: None)
+                if broken:
+                    trainer.inject_failure(at_step=3)
+                trainer.run(bundle.init_fn(
+                    torch.Generator(device=DEV).manual_seed(0)), steps=6)
+                runs[broken] = trainer.report
+        r, clean = runs[True], runs[False]
+        if r.restarts != 1 or r.steps_run != 7 or clean.restarts != 0:
+            raise AssertionError(f"[g4] {arch}: restarts {r.restarts}, "
+                                 f"steps run {r.steps_run}")
+        # steps 0-2, then step 2 again from the checkpoint, then 3-5
+        replay = r.losses[:3] + r.losses[4:]
+        err = max(abs(a - b) / abs(b) for a, b in zip(replay, clean.losses))
+        if len(replay) != 6 or err > G4_RTOL or \
+                abs(r.losses[3] - r.losses[2]) > G4_RTOL * abs(r.losses[2]):
+            raise AssertionError(f"[g4] {arch}: losses {r.losses} vs "
+                                 f"unbroken {clean.losses}")
+        log(f"[g4] {arch} smoke on {DEV}: failure at step 3, restored from "
+            f"the step-2 checkpoint, 1 restart; losses after the replay vs "
+            f"an unbroken run: max relative |diff| {err} (rtol {G4_RTOL})")
+
+
+def phase_g5() -> None:
+    """``repro_torch.launch.train --gym --arch xlstm-125m --full --steps 4
+    --batch 8 --seq 128`` on the card: 4 metric messages, no attention
+    kernel."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    args = train.parse_args(["--gym", "--arch", "xlstm-125m", "--full",
+                             "--steps", "4", "--batch", "8", "--seq", "128",
+                             "--device", DEV])
+    fa.launches = 0
+    t0 = time.perf_counter()
+    eng, sink, losses = train.run_gym(args)
+    wall = time.perf_counter() - t0
+    if fa.launches:
+        raise AssertionError(f"[g5] {fa.launches} attention launches")
+    if len(losses) != 4 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[g5] metric messages {losses}")
+    log(f"[g5] gym training, xlstm-125m full width on {DEV}, batch 8 x 128:"
+        f" {len(losses)} metric messages, losses {losses}; attention kernel "
+        f"launches 0; engine wall {wall:.3f} s")
+    del eng, sink
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_g(rnd) -> dict:
+    t0 = time.perf_counter()
+    err = phase_g1(rnd)
+    phase_g2()
+    main = phase_g3()
+    phase_g4()
+    phase_g5()
+    timed = {f"window {w}": time_prefill(
+        rnd, f"gemma2 training shape, window {w}", GEMMA_TRAIN["B"],
+        GEMMA_TRAIN["S"], GEMMA_TRAIN["NH"], GEMMA_TRAIN["KV"],
+        GEMMA_TRAIN["hd"], window=w, cap=GEMMA_TRAIN["cap"])
+        for w in GEMMA_WINDOWS}
+    log(f"[g] phase wall {time.perf_counter() - t0:.1f} s")
+    return dict(main, max_abs_err=err, timed=timed)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1022,6 +1440,7 @@ def main() -> int:
     launches = phase_d()
     phase_e()
     phase_f()
+    train = phase_g(rnd)
     kernels = []
     for name, src, replaces, design in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -1030,11 +1449,18 @@ def main() -> int:
             ("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
              "src/repro/kernels/flash_decode.py:68", "split-k+cp.async")):
         t = times[name]
+        # training (g3): launches over its 6 steps, and the kernel timed at
+        # gemma2-2b's training shape (local layers: window 4096)
+        tr = {"launches": 0}
+        if name == "flash_attention":
+            tr = {"launches": train["launches"],
+                  "max_abs_err": train["max_abs_err"],
+                  **train["timed"]["window 4096"]}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], **t,
                         "bound_share": t["bound_ms"] / t["ms"],
-                        "design": design})
+                        "design": design, "train": tr})
     log(f"[done] torch {torch.__version__} (cuda {torch.version.cuda}); "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -70,15 +70,15 @@ batch queries a single ``BatchOp`` stage — with the original
   fraud_svm                                 — ML prediction (linear SVM)
   traffic_metrics                           — Ocampo traffic monitoring
   lm_generate                               — serve an LM over the stream
+  lm_train                                  — train an LM on the stream
   identity                                  — passthrough
 
 The queries with tensor compute (``sentiment``, ``ride_select``,
-``fraud_svm``, ``traffic_metrics``, ``lm_generate``) run it on
-``resolve_device(comp.get("device"))``: ``cuda`` unless the spec says
-``device="cpu"``, and no fallback without a GPU.  Results are read back
-to the host inside the query, so the SPE's measured wall (``spe_exec``)
-covers the device work.  ``lm_train`` is not ported yet (ROADMAP A8); a
-spec naming it raises ``KeyError``.
+``fraud_svm``, ``traffic_metrics``, ``lm_generate``, ``lm_train``) run
+it on ``resolve_device(comp.get("device"))``: ``cuda`` unless the spec
+says ``device="cpu"``, and no fallback without a GPU.  Results are read
+back to the host inside the query, so the SPE's measured wall
+(``spe_exec``) covers the device work.
 """
 from __future__ import annotations
 
@@ -969,6 +969,71 @@ def _merge_prefill_cache(full, prefill, S: int):
     return dst
 
 
+class LMTrainQuery(Query):
+    """Real LM training as a stream job: batches in, loss metrics out.
+
+    Component attributes: ``arch`` (default ``xlstm-125m``), ``seed``,
+    ``device`` (default ``cuda``) and ``smoke`` (default ``True``: the
+    reference's ``reduce_for_smoke`` config; ``False`` trains
+    ``get_config(arch)`` at full width).  The train state comes from
+    :meth:`_init_params` at the first batch, whose shape it takes.
+    Training state is a real optimizer state on the device — deliberately
+    outside ``state_attrs`` (checkpointing model weights is the job of
+    ``repro_torch.checkpoint``, not the stream-state backend).
+    """
+
+    def __init__(self, comp):
+        super().__init__(comp)
+        self._built = False
+
+    def _build(self):
+        from repro_torch.configs import get_config, reduce_for_smoke
+        from repro_torch.models.params import resolve_device
+
+        cfg = get_config(self.comp.get("arch", "xlstm-125m"))
+        if self.comp.get("smoke", True):
+            cfg = reduce_for_smoke(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(self.comp.get("device"))
+        self._bundle = None
+        self._state = None
+        self._seed = int(self.comp.get("seed", 0))
+        self._built = True
+
+    def _init_params(self, bundle) -> dict:
+        import torch
+        return bundle.init_fn(
+            torch.Generator(device=self.device).manual_seed(self._seed))
+
+    def _run(self, spe, eng, records):
+        if not self._built:
+            self._build()
+        import torch
+        from repro_torch.configs.base import ShapeCfg
+        from repro_torch.train import make_step_bundle
+        out = []
+        for r in records:
+            d = self._data(r)
+            if not (isinstance(d, dict) and "tokens" in d):
+                continue
+            toks = torch.as_tensor(
+                np.asarray(d["tokens"]) % self.cfg.vocab_size,
+                dtype=torch.int64, device=self.device)
+            B, S = toks.shape
+            if self._bundle is None:
+                self._bundle = make_step_bundle(
+                    self.cfg, ShapeCfg("gym", S, B, "train"))
+                self._state = self._init_params(self._bundle)
+            batch = {"inputs": toks[:, :-1] if S > 1 else toks,
+                     "labels": toks[:, 1:] if S > 1 else toks}
+            self._state, metrics = self._bundle.step_fn(self._state, batch)
+            unit = _unit_of(r.payload)
+            out.append(self._wrap(
+                {"loss": float(metrics["loss"]),
+                 "step": int(metrics["step"])}, 16, unit))
+        return out
+
+
 class IdentityQuery(Query):
     def ops(self):
         return []                    # empty chain: pure passthrough
@@ -990,11 +1055,12 @@ QUERIES: dict[str, type[Query]] = {
     "fraud_svm": FraudSVMQuery,
     "traffic_metrics": TrafficMetricsQuery,
     "lm_generate": LMGenerateQuery,
+    "lm_train": LMTrainQuery,
     "identity": IdentityQuery,
 }
 
 # queries of the reference that this package does not run yet
-NOT_PORTED = {"lm_train": "A8"}
+NOT_PORTED: dict[str, str] = {}
 
 
 def query_class(name: str) -> type[Query]:

@@ -2,9 +2,10 @@
 
 The reference builds nested dicts of arrays (``repro/models/params.py``).
 Here every dict node is a :class:`ParamTree` module and every leaf an
-``nn.Parameter`` (``requires_grad=False``: this slice only serves), so a
-``state_dict`` key is the reference's tree path — ``groups.3.l0.mixer.wq``
-— with the scanned group axis unrolled into a ``ModuleList``.  Nodes
+``nn.Parameter`` (``requires_grad=False`` until a trainer asks for
+gradients: serving needs none), so a ``state_dict`` key is the
+reference's tree path — ``groups.3.l0.mixer.wq`` — with the scanned group
+axis unrolled into a ``ModuleList``.  Nodes
 index like dicts (``p["wq"]``), so the layer functions take a module or a
 plain dict of tensors alike.
 
@@ -141,6 +142,8 @@ class ParamTree(nn.Module):
 
 
 def _to_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes: same bits as torch's bf16
         return torch.from_numpy(
@@ -163,16 +166,17 @@ def _flatten(tree, prefix: str, out: dict) -> None:
 def _unstack(tree, i: int):
     if isinstance(tree, dict):
         return {k: _unstack(v, i) for k, v in tree.items()}
-    return np.asarray(tree)[i]
+    return tree[i] if isinstance(tree, torch.Tensor) else np.asarray(tree)[i]
 
 
 def from_jax_params(cfg, tree) -> dict:
     """The reference's ``Model.init_params`` tree -> a port ``state_dict``.
 
     ``tree`` holds nested dicts of numpy arrays (the caller converts the
-    JAX arrays with ``np.asarray``).  With ``cfg.scan_layers`` the
-    ``groups`` subtree is stacked along a leading group axis; it is split
-    into ``groups.<i>`` entries.  A list of groups is taken as it is.
+    JAX arrays with ``np.asarray``) or of torch tensors.  With
+    ``cfg.scan_layers`` the ``groups`` subtree is stacked along a leading
+    group axis; it is split into ``groups.<i>`` entries.  A list of groups
+    is taken as it is.
     """
     groups = tree["groups"]
     if isinstance(groups, dict):
@@ -181,3 +185,66 @@ def from_jax_params(cfg, tree) -> dict:
     _flatten({"embed": tree["embed"], "groups": list(groups),
               "final_norm": tree["final_norm"]}, "", out)
     return out
+
+
+def to_jax_params(cfg, sd: dict, device="cpu") -> dict:
+    """A port ``state_dict`` (or a dict keyed like one) -> the reference's
+    nested parameter tree, every leaf copied to ``device``.
+
+    The inverse of :func:`from_jax_params`: with ``cfg.scan_layers`` the
+    ``groups.<i>.<path>`` entries are stacked along a leading group axis
+    into ``groups/<path>``, as the reference's scanned tree holds them;
+    otherwise ``groups`` is a list of group trees.
+    """
+    tree: dict = {}
+    per_group: list = [{} for _ in range(cfg.n_groups)]
+    for key, t in sd.items():
+        parts = key.split(".")
+        if parts[0] == "groups":
+            node, parts = per_group[int(parts[1])], parts[2:]
+        else:
+            node = tree
+        for name in parts[:-1]:
+            node = node.setdefault(name, {})
+        node[parts[-1]] = t
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack([t.detach().to(device) for t in trees])
+
+    def copy(node):
+        if isinstance(node, dict):
+            return {k: copy(v) for k, v in node.items()}
+        return node.detach().to(device, copy=True)
+
+    tree = copy(tree)
+    tree["groups"] = (stack(per_group) if cfg.scan_layers
+                      else [copy(g) for g in per_group])
+    return tree
+
+
+def from_jax_state(cfg, state) -> dict:
+    """The reference's train state ``{"params", "opt": {"m", "v", "step"}}``
+    (numpy arrays or torch tensors) -> the port's, as tensors on the CPU:
+    ``{"params": state_dict, "opt": {"m": {key: t}, "v": {key: t},
+    "step": int32 scalar}}`` with the moments keyed like the
+    ``state_dict``."""
+    opt = state["opt"]
+    return {"params": from_jax_params(cfg, state["params"]),
+            "opt": {"m": from_jax_params(cfg, opt["m"]),
+                    "v": from_jax_params(cfg, opt["v"]),
+                    "step": _to_tensor(opt["step"]).to(torch.int32)}}
+
+
+def to_jax_state(cfg, state, device="cpu") -> dict:
+    """The port's train state ``{"params": Model, "opt": ...}`` -> the
+    reference's tree (groups stacked as :func:`to_jax_params` does), every
+    leaf a copy on ``device``: ``cpu`` for a host snapshot, ``meta`` for
+    the tree's shapes alone."""
+    opt = state["opt"]
+    return {"params": to_jax_params(cfg, state["params"].state_dict(),
+                                    device),
+            "opt": {"m": to_jax_params(cfg, opt["m"], device),
+                    "v": to_jax_params(cfg, opt["v"], device),
+                    "step": opt["step"].detach().to(device, copy=True)}}

@@ -7,14 +7,20 @@ loops over an unrolled ``ModuleList`` (``groups.<i>.l<j>...``).
 
 Mixers ``attn`` / ``attn_local`` / ``mlstm`` / ``slstm`` and ffn ``mlp``
 are ported; ``mamba`` and ``moe`` raise ``NotImplementedError`` naming
-their ROADMAP item.  Serving only: ``prefill``, ``decode_step`` and
-``init_cache`` (training is ROADMAP A8).
+their ROADMAP item.  Training: ``trunk`` and the sequence-chunked
+``loss``, with the reference's ``remat`` policies as activation
+checkpointing around each group.  Serving: ``prefill``, ``decode_step``
+and ``init_cache``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ArchConfig, Layer
 from repro_torch.models import attention as attn_mod
@@ -67,7 +73,9 @@ def init_layer(cfg: ArchConfig, layer: Layer) -> dict:
 def layer_apply(p, x, cfg: ArchConfig, layer: Layer, *, mode: str,
                 positions=None, cache: Optional[dict] = None,
                 cache_pos: Optional[int] = None):
-    """mode: prefill | decode.  Returns (x, new_cache)."""
+    """mode: train | prefill | decode.  Returns (x, new_cache, aux);
+    new_cache is None in train mode, aux a dict of auxiliary losses (none
+    for the ported mixers and ffns)."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, zero_centered=_zc(cfg))
     mixer_cache = cache["mixer"] if mode == "decode" else None
     if layer.mixer in ("attn", "attn_local"):
@@ -101,7 +109,8 @@ def layer_apply(p, x, cfg: ArchConfig, layer: Layer, *, mode: str,
             h = L.rmsnorm(p["post_norm2"], h, cfg.norm_eps,
                           zero_centered=_zc(cfg))
         x = x + h
-    return x, {"mixer": new_mixer_cache}
+    new_cache = None if mode == "train" else {"mixer": new_mixer_cache}
+    return x, new_cache, {}
 
 
 # ---------------------------------------------------------------------------
@@ -116,13 +125,44 @@ def init_group(cfg: ArchConfig) -> dict:
 
 def group_apply(gp, x, cfg: ArchConfig, *, mode, positions=None,
                 gcache=None, cache_pos=None):
+    """Returns (x, new caches or None, aux sum as a float32 scalar)."""
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = {}
     for i, layer in enumerate(cfg.pattern):
         cache_i = gcache[f"l{i}"] if gcache is not None else None
-        x, new_caches[f"l{i}"] = layer_apply(
+        x, nc, aux = layer_apply(
             gp[f"l{i}"], x, cfg, layer, mode=mode, positions=positions,
             cache=cache_i, cache_pos=cache_pos)
-    return x, new_caches
+        if nc is not None:
+            new_caches[f"l{i}"] = nc
+        if "moe_aux" in aux:
+            aux_sum = aux_sum + aux["moe_aux"]
+    return x, (new_caches or None), aux_sum
+
+
+# matmul results: what ``jax.checkpoint_policies.checkpoint_dots`` saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg):
+    """``cfg.remat``: none keeps every activation; full keeps only the
+    group's inputs and recomputes the rest in the backward pass; dots
+    keeps the matmul outputs too."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat != "full":
+        raise ValueError(cfg.remat)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +171,7 @@ def group_apply(gp, x, cfg: ArchConfig, *, mode, positions=None,
 
 
 class Model(ParamTree):
-    """The parameter tree plus prefill / decode.
+    """The parameter tree plus the training loss and prefill / decode.
 
     ``Model(cfg, device=...)`` allocates the parameters (in
     ``cfg.param_dtype``) without drawing them: call :meth:`init_params`
@@ -160,6 +200,69 @@ class Model(ParamTree):
                                  device=x.device)
         return x
 
+    # --- forward trunk ---------------------------------------------------
+
+    def trunk(self, inputs, *, positions=None):
+        """Embed + all blocks + final norm.  Returns (hidden, aux)."""
+        cfg = self.cfg
+        x = self._embed_inputs(inputs)
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+        def one_group(x, gp):
+            out, _, a = group_apply(gp, x, cfg, mode="train",
+                                    positions=positions)
+            return out, a
+
+        one_group = _remat(one_group, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for gp in self.groups:
+            x, a = one_group(x, gp)
+            aux = aux + a
+        x = L.rmsnorm(self.final_norm, x, cfg.norm_eps,
+                      zero_centered=_zc(cfg))
+        return x, aux
+
+    # --- training loss ----------------------------------------------------
+
+    def loss(self, batch, *, seq_chunk: int = 512):
+        """batch: {"inputs": (B,S) int or (B,S,D) float, "labels": (B,S)}.
+
+        Cross-entropy over sequence chunks, each recomputed in the
+        backward pass, so the full (B, S, vocab) logits never exist at
+        once.  Returns (ce + 0.01 * aux, {"ce", "aux"}).
+        """
+        cfg = self.cfg
+        x, aux = self.trunk(batch["inputs"])
+        labels = batch["labels"].long()
+        B, S = labels.shape
+        w = (self.embed.embedding.T if cfg.tie_embeddings
+             else self.embed.unembed).to(dtype_of(cfg.compute_dtype))
+
+        n_chunks = max(1, S // seq_chunk)
+        c = S // n_chunks
+        xc = x.reshape(B, n_chunks, c, -1).transpose(0, 1)
+        lc = labels.reshape(B, n_chunks, c).transpose(0, 1)
+
+        def chunk_loss(x_i, l_i):
+            # the reference's order: the product and the final softcap in
+            # the compute dtype, then float32 for the log-sum-exp
+            logits = x_i @ w
+            if cfg.final_softcap:
+                cap = cfg.final_softcap
+                logits = cap * torch.tanh(logits / cap)
+            logits = logits.float()
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, l_i[..., None])[..., 0]
+            return torch.sum(lse - gold)
+
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for x_i, l_i in zip(xc, lc):
+            total = total + checkpoint(chunk_loss, x_i, l_i,
+                                       use_reentrant=False)
+        ce = total / (B * S)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
     # --- serving ----------------------------------------------------------
 
     @torch.no_grad()
@@ -173,8 +276,8 @@ class Model(ParamTree):
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         caches = []
         for gp in self.groups:
-            x, c = group_apply(gp, x, cfg, mode="prefill",
-                               positions=positions)
+            x, c, _ = group_apply(gp, x, cfg, mode="prefill",
+                                  positions=positions)
             caches.append(c)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps,
                       zero_centered=_zc(cfg))
@@ -192,8 +295,8 @@ class Model(ParamTree):
         x = self._embed_inputs(inputs)
         new_cache = []
         for gp, gc in zip(self.groups, cache):
-            x, nc = group_apply(gp, x, cfg, mode="decode", gcache=gc,
-                                cache_pos=pos)
+            x, nc, _ = group_apply(gp, x, cfg, mode="decode", gcache=gc,
+                                   cache_pos=pos)
             new_cache.append(nc)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps,
                       zero_centered=_zc(cfg))

@@ -11,6 +11,8 @@ kernels) are held against the same parameters on the CPU (the
 reference's XLA paths) at 2e-4, the bar of ``tests/test_models.py``; so
 are the xLSTM smoke model and the application queries (ROADMAP C3).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -279,3 +281,94 @@ def test_app_queries_on_card_match_cpu(name, rows, cuda):
         assert out["cuda"].pop("best_area") == out["cpu"].pop("best_area")
     tol = 1e-5 if name == "fraud_svm" else 1e-6
     torch.testing.assert_close(out["cuda"], out["cpu"], atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# training: the autograd function and train steps on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_flash_attention_autograd_on_card(case, dtype, cuda):
+    """The forward is the kernel (one launch); given the same upstream
+    grad, the grads equal autograd through ref.attention exactly: the
+    backward is that same plain recompute."""
+    B, S, NH, KV, hd, window, cap = case
+    q, k, v, g = (t.to(cuda, dtype) for t in arrays(
+        5, (B, S, NH, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, NH, hd)))
+    for t in (q, k, v):
+        t.requires_grad_()
+    kw = dict(scale=hd ** -0.5, causal=True, window=window, softcap=cap)
+    before = fa.launches
+    out = ops.flash_attention(q, k, v, kw["scale"], True, window, cap)
+    assert fa.launches == before + 1
+    plain = ref.attention(q, k, v, **kw)
+    close(out, plain, TOL[dtype])
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = torch.autograd.grad(plain, (q, k, v), g)
+    assert fa.launches == before + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def smoke_grads(model, toks, remat="none"):
+    model.cfg = dataclasses.replace(model.cfg, remat=remat)
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    loss, _ = model.loss(batch)
+    return loss, dict(zip(params, torch.autograd.grad(
+        loss, list(params.values()))))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma2-2b"])
+def test_loss_on_card_reaches_attention_weights(arch, cuda):
+    """The loss through the kernel's autograd function reaches wq, wk and
+    wv (no cut graph) and every gradient matches the CPU's at 2e-4 of the
+    model's largest entry (tests/test_torch_train.py); with remat full
+    each layer's kernel runs twice (forward, recompute)."""
+    cfg = reduce_for_smoke(get_config(arch))
+    cpu = Model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 65)))
+    want_loss, want = smoke_grads(cpu, toks)
+    for remat, per_layer in (("none", 1), ("full", 2)):
+        before = fa.launches
+        loss, got = smoke_grads(gpu, toks.to(cuda), remat)
+        assert fa.launches == before + per_layer * cfg.n_layers
+        torch.testing.assert_close(loss.cpu(), want_loss, atol=2e-4,
+                                   rtol=2e-4)
+        scale = max(float(w.abs().max()) for w in want.values())
+        for key, g in got.items():
+            if key.endswith(("mixer.wq", "mixer.wk", "mixer.wv")):
+                assert float(g.abs().max()) > 0, key
+            torch.testing.assert_close(g.cpu(), want[key], rtol=2e-4,
+                                       atol=2e-4 * scale, msg=key)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "xlstm-125m"])
+def test_train_steps_on_card_match_cpu(arch, cuda):
+    """Three train steps (AdamW, warmup schedule) from the same state on
+    the card and on the CPU: losses at rtol 1e-5."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.pipeline import make_source
+    from repro_torch.train import make_step_bundle
+    cfg = reduce_for_smoke(get_config(arch))
+    bundle = make_step_bundle(cfg, ShapeCfg("t", 32, 2, "train"))
+    src = make_source(cfg, 32)
+    cpu = bundle.init_fn(torch.Generator().manual_seed(0))
+    gpu = bundle.init_fn(torch.Generator(device=cuda).manual_seed(0))
+    gpu["params"].load_state_dict(cpu["params"].state_dict())
+    for i in range(3):
+        batch = {k: torch.from_numpy(v) for k, v in
+                 src.batch(i, 0, 2).items()}
+        cpu, mc = bundle.step_fn(cpu, batch)
+        gpu, mg = bundle.step_fn(gpu, {k: v.to(cuda)
+                                       for k, v in batch.items()})
+        assert int(mg["step"]) == int(mc["step"]) == i + 1
+        np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]),
+                                   rtol=1e-5)

@@ -130,17 +130,15 @@ def test_float_window_aggregates_allclose(agg):
         np.testing.assert_allclose(a["value"], b["value"], rtol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["lm_train"])
-def test_unported_queries_raise(name):
-    spec = tcore.PipelineSpec()
-    spec.add_switch("s1")
-    for h in ("b", "w"):
-        spec.add_host(h).add_link(h, "s1", lat=1.0, bw=1000.0)
-    spec.add_broker("b")
-    spec.add_topic("in", leader="b")
-    spec.add_spe("w", query=name, inTopic="in")
-    with pytest.raises(KeyError, match="not ported"):
-        tcore.Engine(spec, seed=0)
+def test_every_reference_query_is_ported():
+    """Every query name of the reference resolves in the port, to the
+    class of the same name; an unknown name still raises KeyError."""
+    from repro.core.spe import QUERIES
+    from repro_torch.core.spe import query_class
+    for name, cls in QUERIES.items():
+        assert query_class(name).__name__ == cls.__name__
+    with pytest.raises(KeyError):
+        query_class("no_such_query")
 
 
 def test_cohort_and_netcalc_match_reference():
