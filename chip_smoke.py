@@ -46,7 +46,25 @@ Phases, each of which raises on failure:
          memory, model FLOPs share and one profiled step; (g4) an injected
          failure and a checkpoint restore on the card (smoke xlstm-125m,
          qwen2-7b) against an unbroken run; (g5) gym training of
-         xlstm-125m at full width (``--gym --full``).
+         xlstm-125m at full width (``--gym --full``);
+  (h)    granite-moe-3b-a800m at full width and depth (32 layers, 40
+         experts top-8, hd=64 with 3 query heads per KV head, bf16):
+         ``repro_torch.launch.serve --arch granite-moe-3b-a800m --full``
+         serving 4 requests through the gym, with exact launch counts, wall
+         per request, kernels per request, idle share and peak memory; both
+         kernels held against their plain versions and timed at its
+         shapes; the gate: 2 full-width layers in float32 compute, kernels
+         vs plain, logits within F32_TOL and the routing decisions that
+         differ counted;
+  (i)    jamba-v0.1-52b at full width, one period of its pattern (8 of 32
+         layers: 7 mamba, 1 attention, 4 MLP, 4 MoE; hd=128 with 4 query
+         heads per KV head; bf16): ``serve --arch jamba-v0.1-52b --full``
+         with the config cut to that depth (``cut_depth``), serving 2
+         requests with exact launch counts, a profiled request (idle
+         share, the attention kernels that ran) and peak memory, then one
+         prefill of 256 tokens (the chunked scan) with finite logits and
+         states; both kernels held against their plain versions and
+         timed at its shapes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -54,6 +72,7 @@ result, when no GPU is present or the port is missing.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -552,21 +571,46 @@ class observe_serve:
          Model.decode_step) = self.saved
 
 
-def serve_full(arch: str, params=None):
-    """``repro_torch.launch.serve --arch <arch> --full --device cuda``:
-    N_REQUESTS requests of batch MAIN_B, seq MAIN_S, gen MAIN_GEN through
-    the port's gym, the kernels' launch counts set to 0 just before and
-    read just after.  Returns (engine, sink runtime, observer, engine
-    wall s, launches)."""
+class cut_depth:
+    """Serve ``arch`` cut to its first ``n_layers`` layers (a multiple of
+    its pattern's period; ``None`` cuts nothing): the query's build looks
+    its config up in ``repro_torch.configs``, which returns the cut
+    config for ``arch`` with every width as published."""
+
+    def __init__(self, arch: str, n_layers=None):
+        self.arch, self.n_layers = arch, n_layers
+
+    def __enter__(self):
+        import repro_torch.configs as configs
+        self.saved = get = configs.get_config
+        if self.n_layers:
+            configs.get_config = lambda name: (
+                dataclasses.replace(get(name), n_layers=self.n_layers)
+                if name == self.arch else get(name))
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.configs as configs
+        configs.get_config = self.saved
+
+
+def serve_full(arch: str, params=None, requests: int = N_REQUESTS,
+               n_layers=None):
+    """``repro_torch.launch.serve --arch <arch> --full --device cuda``
+    (with ``n_layers``, the arch cut to that depth): ``requests``
+    requests of batch MAIN_B, seq MAIN_S, gen MAIN_GEN through the port's
+    gym, the kernels' launch counts set to 0 just before and read just
+    after.  Returns (engine, sink runtime, observer, engine wall s,
+    launches)."""
     import torch
     from repro_torch.kernels import flash_attention as fa, flash_decode as fd
     from repro_torch.launch import serve
     args = serve.parse_args([
         "--arch", arch, "--full", "--device", DEV,
-        "--requests", str(N_REQUESTS), "--batch", str(MAIN_B),
+        "--requests", str(requests), "--batch", str(MAIN_B),
         "--seq", str(MAIN_S), "--gen", str(MAIN_GEN)])
     torch.cuda.reset_peak_memory_stats()
-    with observe_serve(params) as obs:
+    with observe_serve(params) as obs, cut_depth(arch, n_layers):
         fa.launches = 0
         fd.launches = 0
         t0 = time.perf_counter()
@@ -577,11 +621,12 @@ def serve_full(arch: str, params=None):
     return eng, sink_rt, obs, wall, launches
 
 
-def check_responses(tag, sink_rt, vocab, finite) -> None:
+def check_responses(tag, sink_rt, vocab, finite,
+                    requests: int = N_REQUESTS) -> None:
     import numpy as np
     import torch
-    if sink_rt.n_received != N_REQUESTS:
-        raise AssertionError(f"{tag} {sink_rt.n_received}/{N_REQUESTS} "
+    if sink_rt.n_received != requests:
+        raise AssertionError(f"{tag} {sink_rt.n_received}/{requests} "
                              "responses reached the sink")
     for p in sink_rt.payloads:
         gen = np.asarray((p["data"] if "data" in p else p)["generated"])
@@ -608,9 +653,9 @@ def phase_d() -> dict:
             "flash_decode": N_LAYERS * (MAIN_GEN - 1) * N_REQUESTS}
     if launches != want:
         raise AssertionError(f"[d] launches {launches}, expected {want}")
-    splits = decode_splits()
-    rows = profile_request("[d]", eng, obs.walls)
-    attention_kernel_check(rows)
+    splits = decode_splits("[d]", **QWEN)
+    rows = profile_request("[d]", eng, obs.walls)["rows"]
+    attention_kernel_check("[d]", rows, N_LAYERS)
     m = eng.metrics()
     e2e = eng.monitor.e2e_latency()
     log(f"[d] qwen2-7b full width (28 layers, d=3584, vocab {vocab}, bf16 "
@@ -632,19 +677,18 @@ def phase_d() -> dict:
     return launches
 
 
-def decode_splits() -> dict:
-    """The split count of each decode step of the main path (bf16 q, the
+def decode_splits(tag, NH, KV, hd) -> dict:
+    """The split count of each decode step of a served path (bf16 q, the
     model's float32 (B,KV,hd,S) K cache); all must be 1."""
     import torch
     from repro_torch.kernels import flash_decode as fd
-    q = torch.empty((MAIN_B, QWEN["NH"], QWEN["hd"]), dtype=torch.bfloat16,
-                    device="cuda")
-    kc = torch.empty((MAIN_B, QWEN["KV"], QWEN["hd"], MAIN_MAXLEN),
+    q = torch.empty((MAIN_B, NH, hd), dtype=torch.bfloat16, device="cuda")
+    kc = torch.empty((MAIN_B, KV, hd, MAIN_MAXLEN),
                      device="cuda").permute(0, 3, 1, 2)
     splits = {pos: fd.plan(q, kc, pos)
               for pos in range(MAIN_S, MAIN_S + MAIN_GEN - 1)}
     if set(splits.values()) != {1}:
-        raise AssertionError(f"[d] main-path decode splits {splits}")
+        raise AssertionError(f"{tag} decode splits {splits}")
     return splits
 
 
@@ -657,14 +701,17 @@ def device_rows(prof) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def profile_request(tag, eng, walls) -> list:
+def profile_request(tag, eng, walls, vocab: int = 512) -> dict:
     """One more request through the served query under torch.profiler:
-    the device's busy time by kernel against the request's wall time."""
+    the device's busy time by kernel against the request's wall time.
+    Returns the kernel rows, the kernel count, the busy ms, the median
+    unprofiled wall ms of requests 2.. and the idle share of that wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     query = served_query(eng)
     g = torch.Generator(device=DEV).manual_seed(2)
-    toks = torch.randint(0, 512, (MAIN_B, MAIN_S), generator=g, device=DEV)
+    toks = torch.randint(0, vocab, (MAIN_B, MAIN_S), generator=g,
+                         device=DEV)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -681,24 +728,25 @@ def profile_request(tag, eng, walls) -> list:
         f"unprofiled wall")
     for ms, n, key in sorted(rows, reverse=True)[:8]:
         log(f"{tag}   {ms:.3f} ms device, {n} calls: {key[:90]}")
-    return rows
+    return dict(rows=rows, kernels=sum(r[1] for r in rows), busy_ms=busy_ms,
+                steady_ms=steady, idle_share=1 - busy_ms / steady)
 
 
-def attention_kernel_check(rows) -> None:
+def attention_kernel_check(tag, rows, n_attn: int) -> None:
     """The profiled request's attention ran through the redesigned
-    kernels: the tensor-core prefill once per layer, the split decode
-    once per layer and step, no combine (one split) and no float32
-    body."""
+    kernels: the tensor-core prefill once per attention layer, the split
+    decode once per attention layer and step, no combine (one split) and
+    no float32 body."""
     got = {name: [sum(r[1] for r in rows if name in r[2]),
                   sum(r[0] for r in rows if name in r[2])]
            for name in ATTN_KERNELS}
     want = {name: 0 for name in ATTN_KERNELS}
-    want.update(fa_fwd_bf16_mma=N_LAYERS,
-                fd_split_kernel=N_LAYERS * (MAIN_GEN - 1))
+    want.update(fa_fwd_bf16_mma=n_attn,
+                fd_split_kernel=n_attn * (MAIN_GEN - 1))
     if {name: n for name, (n, _) in got.items()} != want:
-        raise AssertionError(f"[d] attention kernel calls in the profiled "
+        raise AssertionError(f"{tag} attention kernel calls in the profiled "
                              f"request {got}, expected {want}")
-    log("[d] attention kernels of the profiled request: " + ", ".join(
+    log(f"{tag} attention kernels of the profiled request: " + ", ".join(
         f"{name} {n} calls {ms:.3f} ms" for name, (n, ms) in got.items()))
 
 
@@ -742,7 +790,7 @@ def phase_e() -> None:
         f"requests 2-{N_REQUESTS} {statistics.median(obs.walls[1:])} s; "
         f"engine run {wall:.3f} s; peak device memory {peak:.3f} GiB")
     query = served_query(eng)
-    rows = profile_request("[e]", eng, obs.walls)
+    rows = profile_request("[e]", eng, obs.walls)["rows"]
     slstm_launch_share(query.model, sum(r[1] for r in rows))
     del eng, sink_rt, obs, query
     gc.collect()
@@ -1421,6 +1469,258 @@ def phase_g(rnd) -> dict:
     return dict(main, max_abs_err=err, timed=timed)
 
 
+# ---------------------------------------------------------------------------
+# (h) granite-moe-3b-a800m at full width and depth
+# ---------------------------------------------------------------------------
+
+GRANITE = "granite-moe-3b-a800m"
+GRANITE_DIMS = dict(NH=24, KV=8, hd=64)    # G = 3
+GATE_STEPS = 8
+
+
+class record_routing:
+    """Record the expert ids and keep mask of every MoE layer call (the
+    model calls ``repro_torch.models.moe.route`` by module name)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.saved, self.calls = moe.route, []
+
+        def recorded(router, xf, cfg):
+            out = self.saved(router, xf, cfg)
+            self.calls.append((out[2], out[4]))
+            return out
+
+        moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self.saved
+
+
+def moe_gate() -> None:
+    """2 full-width granite-moe layers (bf16 params drawn from a seed),
+    float32 compute: prefill + GATE_STEPS decode steps with the kernels
+    against the plain attention, the same tokens fed to both.  Logits
+    agree within F32_TOL; the routing decisions that differ are counted
+    (a near tie may flip by a last-bit difference in the attention)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config(GRANITE), n_layers=2,
+                              compute_dtype="float32")
+    model = Model(cfg, device=DEV).init_params(
+        torch.Generator(device=DEV).manual_seed(0))
+    g = torch.Generator(device=DEV).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (MAIN_B, MAIN_S), generator=g,
+                         device=DEV)
+    with plain_attention(), record_routing() as rp:
+        plain, fed = greedy_steps(model, toks, GATE_STEPS)
+    with record_routing() as rk:
+        kern, _ = greedy_steps(model, toks, GATE_STEPS, feed=fed)
+    worst, agree, total = compare_logits("[h]", "float32 kernel vs plain",
+                                         kern, plain, atol=F32_TOL,
+                                         rtol=F32_TOL)
+    if len(rp.calls) != len(rk.calls) or not rp.calls:
+        raise AssertionError(f"[h] MoE calls {len(rk.calls)} vs "
+                             f"{len(rp.calls)}")
+    ids_diff = sum(int((a[0] != b[0]).sum()) for a, b in zip(rk.calls,
+                                                             rp.calls))
+    keep_diff = sum(int((a[1] != b[1]).sum()) for a, b in zip(rk.calls,
+                                                              rp.calls))
+    pairs = sum(ids.numel() for ids, _ in rk.calls)
+    log(f"[h] gate: {GRANITE} full width, 2 layers, float32 compute, "
+        f"prefill + {GATE_STEPS} decode steps, kernels vs plain: logits max "
+        f"|err| {worst} (atol = rtol = {F32_TOL}); greedy tokens agree "
+        f"{agree}/{total}; routing decisions that differ: expert ids "
+        f"{ids_diff}/{pairs} (token, choice) pairs, keep {keep_diff}/"
+        f"{pairs}, over {len(rk.calls)} MoE calls")
+    del model
+    torch.cuda.empty_cache()
+
+
+def host_dispatch_us(n: int = 20000) -> float:
+    """Host time to issue one small op (an in-place add on the card),
+    averaged over ``n``: the yardstick of a host-bound wall, which moves
+    with the load of the machine's shared CPU cores."""
+    import torch
+    y = torch.zeros(8, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        y.add_(1.0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def kernels_at_shapes(rnd, tag, label, dims) -> tuple[dict, dict]:
+    """Each kernel held against its plain version at a served path's
+    shapes (prefill of MAIN_B x MAIN_S in bf16; a bf16 q against the
+    model's float32 strided cache at the last decode position), then
+    timed there against its plain version and SDPA, with its bound.
+    Returns (max |err| by kernel, times by kernel)."""
+    import torch
+    NH, KV, hd = dims["NH"], dims["KV"], dims["hd"]
+    pos = MAIN_S + MAIN_GEN - 2
+    q, kc, vc = decode_inputs(rnd, MAIN_B, MAIN_MAXLEN, NH, KV, hd,
+                              torch.bfloat16, torch.float32)
+    errs = {"flash_attention": fwd_case(rnd, MAIN_B, MAIN_S, NH, KV, hd, 0,
+                                        0.0, torch.bfloat16),
+            "flash_decode": decode_case(q, kc, vc, pos, 0, 0.0,
+                                        TOL["bfloat16"],
+                                        f"{label} bf16 q, float32 strided "
+                                        "cache")}
+    log(f"{tag} kernels vs plain at {label}'s shapes (hd={hd}, G="
+        f"{NH // KV}): max |err| {errs}")
+    timed = {
+        "flash_attention": time_prefill(rnd, label, MAIN_B, MAIN_S, **dims),
+        "flash_decode": time_decode(rnd, label, MAIN_B, MAIN_MAXLEN, **dims,
+                                    pos=pos, kv_dtype=torch.float32),
+    }
+    if timed["flash_decode"].pop("n_split") != 1:
+        raise AssertionError(f"{tag} the timed decode was split")
+    return errs, timed
+
+
+def phase_h(rnd) -> dict:
+    """The slice's MoE path: ``repro_torch.launch.serve --arch
+    granite-moe-3b-a800m --full`` (32 layers, 40 experts top-8, bf16)."""
+    import torch
+    t0 = time.perf_counter()
+    eng, sink_rt, obs, wall, launches = serve_full(GRANITE)
+    query = served_query(eng)
+    cfg = query.cfg
+    check_responses("[h]", sink_rt, cfg.vocab_size, obs.finite)
+    dims = dict(NH=cfg.n_heads, KV=cfg.n_kv_heads, hd=cfg.head_dim_)
+    if cfg.n_layers != 32 or dims != GRANITE_DIMS:
+        raise AssertionError(f"[h] served {cfg.n_layers} layers, {dims}")
+    n_attn = cfg.n_layers
+    want = {"flash_attention": n_attn * N_REQUESTS,
+            "flash_decode": n_attn * (MAIN_GEN - 1) * N_REQUESTS}
+    if launches != want:
+        raise AssertionError(f"[h] launches {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in query.model.parameters())
+    splits = decode_splits("[h]", **GRANITE_DIMS)
+    dispatch_us = host_dispatch_us()
+    prof = profile_request("[h]", eng, obs.walls, cfg.vocab_size)
+    attention_kernel_check("[h]", prof["rows"], n_attn)
+    log(f"[h] {GRANITE} full width and depth ({cfg.n_layers} layers, "
+        f"d={cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim_}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k}, vocab {cfg.vocab_size}, {n_params} bf16 params): "
+        f"{sink_rt.n_received}/{N_REQUESTS} responses, launches {launches} "
+        f"= per request {n_attn} flash_attention, {n_attn * (MAIN_GEN - 1)} "
+        f"flash_decode")
+    log(f"[h] model build {obs.build_s[0]:.3f} s; wall per request (batch "
+        f"{MAIN_B}, seq {MAIN_S}, gen {MAIN_GEN}) {obs.walls} s, median of "
+        f"requests 2-{N_REQUESTS} {statistics.median(obs.walls[1:])} s; "
+        f"kernels per request {prof['kernels']}; idle share "
+        f"{prof['idle_share']:.4f}; engine run {wall:.3f} s; peak device "
+        f"memory {peak:.3f} GiB; decode splits {splits}; host dispatch of "
+        f"one small op {dispatch_us:.2f} us")
+    del eng, sink_rt, obs, query
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs, timed = kernels_at_shapes(rnd, "[h]", "granite-moe", GRANITE_DIMS)
+    moe_gate()
+    log(f"[h] phase wall {time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, timed=timed, errs=errs)
+
+
+# ---------------------------------------------------------------------------
+# (i) jamba-v0.1-52b at full width, one period of its pattern
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-v0.1-52b"
+JAMBA_LAYERS = 8        # one period: 7 mamba, 1 attention, 4 MLP, 4 MoE
+JAMBA_D = 4096
+JAMBA_DIMS = dict(NH=32, KV=8, hd=128)      # G = 4
+JAMBA_REQUESTS = 2
+JAMBA_LONG_S = 256      # two scan chunks of 128: the chunked branch
+
+
+def phase_i(rnd) -> dict:
+    """``repro_torch.launch.serve --arch jamba-v0.1-52b --full`` cut to
+    one period (JAMBA_LAYERS layers) serving JAMBA_REQUESTS requests, one
+    more request profiled, then one prefill of JAMBA_LONG_S tokens
+    through the served model; both kernels held against their plain
+    versions and timed at jamba's shapes (hd=128, G=4)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, flash_decode as fd
+    t0 = time.perf_counter()
+    eng, sink_rt, obs, wall, launches = serve_full(
+        JAMBA, requests=JAMBA_REQUESTS, n_layers=JAMBA_LAYERS)
+    query = served_query(eng)
+    cfg = query.cfg
+    check_responses("[i]", sink_rt, cfg.vocab_size, obs.finite,
+                    JAMBA_REQUESTS)
+    kinds = collections.Counter(
+        k for layer in cfg.layers() for k in (layer.mixer, layer.ffn))
+    dims = dict(NH=cfg.n_heads, KV=cfg.n_kv_heads, hd=cfg.head_dim_)
+    if cfg.n_layers != JAMBA_LAYERS or cfg.d_model != JAMBA_D or \
+            dims != JAMBA_DIMS or \
+            kinds != {"mamba": 7, "attn": 1, "mlp": 4, "moe": 4}:
+        raise AssertionError(f"[i] served {cfg.n_layers} layers {kinds}, "
+                             f"{dims}")
+    n_attn = kinds["attn"]
+    want = {"flash_attention": n_attn * JAMBA_REQUESTS,
+            "flash_decode": n_attn * (MAIN_GEN - 1) * JAMBA_REQUESTS}
+    if launches != want:
+        raise AssertionError(f"[i] launches {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in query.model.parameters())
+    splits = decode_splits("[i]", **JAMBA_DIMS)
+    prof = profile_request("[i]", eng, obs.walls, cfg.vocab_size)
+    attention_kernel_check("[i]", prof["rows"], n_attn)
+    log(f"[i] {JAMBA} full width, one period ({cfg.n_layers} of 32 layers: "
+        f"{dict(kinds)}; d={cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads of {cfg.head_dim_}, d_inner {cfg.d_inner_mamba}, d_state "
+        f"{cfg.mamba.d_state}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k}, {n_params} params, bf16): "
+        f"{sink_rt.n_received}/{JAMBA_REQUESTS} responses, launches "
+        f"{launches}")
+    log(f"[i] model build {obs.build_s[0]:.3f} s; wall per request (batch "
+        f"{MAIN_B}, seq {MAIN_S}, gen {MAIN_GEN}) {obs.walls} s; kernels "
+        f"per request {prof['kernels']}; idle share "
+        f"{prof['idle_share']:.4f}; engine run {wall:.3f} s; peak device "
+        f"memory {peak:.3f} GiB; decode splits {splits}")
+    # the chunked scan at full width: one prefill of JAMBA_LONG_S tokens
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=DEV).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (MAIN_B, JAMBA_LONG_S),
+                         generator=g, device=DEV)
+    fa.launches = fd.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, cache = query.model.prefill(toks)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t1
+    long_launches = (fa.launches, fd.launches)
+    long_peak = torch.cuda.max_memory_allocated() / 2**30
+    states = [c["mixer"]["ssm"] for gc_ in cache for c in gc_.values()
+              if "ssm" in c["mixer"]]
+    if logits.shape != (MAIN_B, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()) or len(states) != 7 or \
+            not all(bool(torch.isfinite(h).all()) for h in states):
+        raise AssertionError(f"[i] long prefill: logits {logits.shape}, "
+                             f"{len(states)} finite mamba states expected 7")
+    if long_launches != (n_attn, 0):
+        raise AssertionError(f"[i] long prefill launches {long_launches}")
+    log(f"[i] prefill batch {MAIN_B} x {JAMBA_LONG_S} ({JAMBA_LONG_S // 128} "
+        f"scan chunks of 128): finite logits and states, flash_attention "
+        f"launches {long_launches[0]}; wall {long_s:.3f} s; peak device "
+        f"memory {long_peak:.3f} GiB (weights + the (B,S,"
+        f"{cfg.d_inner_mamba},{cfg.mamba.d_state}) float32 scan terms)")
+    del eng, sink_rt, obs, query, logits, cache, states
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs, timed = kernels_at_shapes(rnd, "[i]", "jamba", JAMBA_DIMS)
+    log(f"[i] phase wall {time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, timed=timed, errs=errs)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1441,6 +1741,8 @@ def main() -> int:
     phase_e()
     phase_f()
     train = phase_g(rnd)
+    granite = phase_h(rnd)
+    jamba = phase_i(rnd)
     kernels = []
     for name, src, replaces, design in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -1456,11 +1758,18 @@ def main() -> int:
             tr = {"launches": train["launches"],
                   "max_abs_err": train["max_abs_err"],
                   **train["timed"]["window 4096"]}
+        # serving the MoE (h) and hybrid (i) paths: their launches, and the
+        # kernel checked and timed at their shapes (hd=64 G=3; hd=128 G=4)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], **t,
                         "bound_share": t["bound_ms"] / t["ms"],
-                        "design": design, "train": tr})
+                        "design": design, "train": tr,
+                        **{key: {"launches": run["launches"][name],
+                                 "max_abs_err": run["errs"][name],
+                                 **run["timed"][name]}
+                           for key, run in (("serve_granite_moe", granite),
+                                            ("serve_jamba", jamba))}})
     log(f"[done] torch {torch.__version__} (cuda {torch.version.cuda}); "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1059,12 +1059,5 @@ QUERIES: dict[str, type[Query]] = {
     "identity": IdentityQuery,
 }
 
-# queries of the reference that this package does not run yet
-NOT_PORTED: dict[str, str] = {}
-
-
 def query_class(name: str) -> type[Query]:
-    if name in NOT_PORTED:
-        raise KeyError(f"query {name!r} is not ported to repro_torch yet "
-                       f"(ROADMAP {NOT_PORTED[name]})")
     return QUERIES[name]

@@ -10,6 +10,10 @@ client sink.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
       --requests 4 --batch 4 --seq 64 --gen 8 --full
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-3b-a800m --full --requests 4
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch jamba-v0.1-52b --device cpu --requests 2
 """
 from __future__ import annotations
 

@@ -48,11 +48,12 @@ class Init:
     recurrent weights).  ``scale`` replaces a dense leaf's
     ``1/sqrt(fan_in)``.  A ``const`` leaf is split along its first axis
     into ``len(values)`` equal blocks, block ``j`` filled with
-    ``values[j]``.
+    ``values[j]``.  A ``log_arange`` leaf (the mamba ``A_log``) holds
+    ``log(1..N)`` along its last axis, N = ``shape[-1]``, in every row.
     """
 
     shape: tuple
-    kind: str  # dense | embed | const
+    kind: str  # dense | embed | const | log_arange
     dtype: Optional[str] = None
     scale: Optional[float] = None
     values: tuple = ()
@@ -71,6 +72,10 @@ def const_init(shape, *values: float, dtype: Optional[str] = None) -> Init:
     return Init(tuple(shape), "const", dtype, values=tuple(values))
 
 
+def log_arange_init(shape, dtype: Optional[str] = None) -> Init:
+    return Init(tuple(shape), "log_arange", dtype)
+
+
 def zeros_init(shape, dtype: Optional[str] = None) -> Init:
     return const_init(shape, 0.0, dtype=dtype)
 
@@ -84,8 +89,8 @@ def draw_(p: torch.Tensor, init: Init, gen: torch.Generator) -> None:
 
     dense: N(0, 1) * scale, scale = 1 / sqrt(fan_in) unless given, fan_in
     = shape[0] (1 for vectors); embed: N(0, 1) * 0.02; const: the blocks
-    of ``init.values``.  Normals are drawn in float32 and then cast, as
-    the reference does.
+    of ``init.values``; log_arange: ``log(1..N)`` along the last axis.
+    Normals are drawn in float32 and then cast, as the reference does.
     """
     if init.kind in ("dense", "embed"):
         x = torch.randn(p.shape, generator=gen, device=p.device,
@@ -100,6 +105,10 @@ def draw_(p: torch.Tensor, init: Init, gen: torch.Generator) -> None:
     elif init.kind == "const":
         for block, value in zip(p.chunk(len(init.values)), init.values):
             block.fill_(value)
+    elif init.kind == "log_arange":
+        n = p.shape[-1]
+        p.copy_(torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                       device=p.device)).expand(p.shape))
     else:
         raise ValueError(init.kind)
 

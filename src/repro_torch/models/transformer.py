@@ -1,16 +1,16 @@
-"""Decoder stack for the dense families: per-layer (mixer, ffn) blocks.
+"""Decoder stack: per-layer (mixer, ffn) blocks.
 
 Counterpart of ``repro/models/transformer.py``.  ``n_layers`` is split
 into ``n_groups`` repetitions of the config's layer ``pattern``, as in
 the reference; the reference scans over the stacked group axis, the port
 loops over an unrolled ``ModuleList`` (``groups.<i>.l<j>...``).
 
-Mixers ``attn`` / ``attn_local`` / ``mlstm`` / ``slstm`` and ffn ``mlp``
-are ported; ``mamba`` and ``moe`` raise ``NotImplementedError`` naming
-their ROADMAP item.  Training: ``trunk`` and the sequence-chunked
-``loss``, with the reference's ``remat`` policies as activation
-checkpointing around each group.  Serving: ``prefill``, ``decode_step``
-and ``init_cache``.
+Every mixer of the reference (``attn`` / ``attn_local`` / ``mamba`` /
+``mlstm`` / ``slstm``) and every ffn (``mlp`` / ``moe``) is ported, so
+every config of ``repro_torch.configs`` builds.  Training: ``trunk`` and
+the sequence-chunked ``loss`` (``ce + 0.01 * moe_aux``), with the
+reference's ``remat`` policies as activation checkpointing around each
+group.  Serving: ``prefill``, ``decode_step`` and ``init_cache``.
 """
 from __future__ import annotations
 
@@ -25,16 +25,10 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ArchConfig, Layer
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.params import ParamTree, dtype_of, resolve_device
-
-_NOT_PORTED = {"mamba": "A9 (ssm)", "moe": "A9 (moe)"}
-
-
-def _not_ported(kind: str):
-    return NotImplementedError(
-        f"{kind!r} layers are not ported to repro_torch yet "
-        f"(ROADMAP {_NOT_PORTED.get(kind, '?')})")
 
 
 def _zc(cfg) -> bool:
@@ -51,20 +45,24 @@ def init_layer(cfg: ArchConfig, layer: Layer) -> dict:
     p: dict = {"norm1": L.init_rmsnorm(cfg.d_model)}
     if layer.mixer in ("attn", "attn_local"):
         p["mixer"] = attn_mod.init_attn(cfg)
+    elif layer.mixer == "mamba":
+        p["mixer"] = ssm_mod.init_mamba(cfg)
     elif layer.mixer == "mlstm":
         p["mixer"] = xlstm_mod.init_mlstm(cfg)
     elif layer.mixer == "slstm":
         p["mixer"] = xlstm_mod.init_slstm(cfg)
     else:
-        raise _not_ported(layer.mixer)
+        raise ValueError(layer.mixer)
     if cfg.post_norm:
         p["post_norm1"] = L.init_rmsnorm(cfg.d_model)
     if layer.ffn != "none":
         p["norm2"] = L.init_rmsnorm(cfg.d_model)
         if layer.ffn == "mlp":
             p["ffn"] = L.init_mlp(cfg)
+        elif layer.ffn == "moe":
+            p["ffn"] = moe_mod.init_moe(cfg)
         else:
-            raise _not_ported(layer.ffn)
+            raise ValueError(layer.ffn)
         if cfg.post_norm:
             p["post_norm2"] = L.init_rmsnorm(cfg.d_model)
     return p
@@ -74,8 +72,9 @@ def layer_apply(p, x, cfg: ArchConfig, layer: Layer, *, mode: str,
                 positions=None, cache: Optional[dict] = None,
                 cache_pos: Optional[int] = None):
     """mode: train | prefill | decode.  Returns (x, new_cache, aux);
-    new_cache is None in train mode, aux a dict of auxiliary losses (none
-    for the ported mixers and ffns)."""
+    new_cache is None in train mode, aux the moe layer's ``moe_aux`` and
+    ``moe_drop`` (empty for the other ffns)."""
+    aux: dict = {}
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, zero_centered=_zc(cfg))
     mixer_cache = cache["mixer"] if mode == "decode" else None
     if layer.mixer in ("attn", "attn_local"):
@@ -88,29 +87,39 @@ def layer_apply(p, x, cfg: ArchConfig, layer: Layer, *, mode: str,
             h, new_mixer_cache = attn_mod.attn_apply(
                 p["mixer"], h, cfg, local=local, positions=positions,
                 return_kv=mode == "prefill")
+    elif layer.mixer == "mamba":
+        # a prefill starts from a fresh cache and returns the states after
+        # its last position, as the reference does
+        if mode == "prefill":
+            mixer_cache = ssm_mod.init_mamba_cache(cfg, x.shape[0],
+                                                   device=x.device)
+        h, new_mixer_cache = ssm_mod.mamba_apply(p["mixer"], h, cfg,
+                                                 cache=mixer_cache)
     elif layer.mixer in ("mlstm", "slstm"):
         apply = (xlstm_mod.mlstm_apply if layer.mixer == "mlstm"
                  else xlstm_mod.slstm_apply)
         h, new_mixer_cache = apply(p["mixer"], h, cfg, cache=mixer_cache,
                                    return_state=mode == "prefill")
     else:
-        raise _not_ported(layer.mixer)
+        raise ValueError(layer.mixer)
 
     if cfg.post_norm:
         h = L.rmsnorm(p["post_norm1"], h, cfg.norm_eps, zero_centered=_zc(cfg))
     x = x + h
 
     if layer.ffn != "none":
-        if layer.ffn != "mlp":
-            raise _not_ported(layer.ffn)
         h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, zero_centered=_zc(cfg))
-        h = L.mlp(p["ffn"], h, cfg)
+        if layer.ffn == "mlp":
+            h = L.mlp(p["ffn"], h, cfg)
+        else:
+            h, moe_aux = moe_mod.moe_apply(p["ffn"], h, cfg)
+            aux.update(moe_aux)
         if cfg.post_norm:
             h = L.rmsnorm(p["post_norm2"], h, cfg.norm_eps,
                           zero_centered=_zc(cfg))
         x = x + h
     new_cache = None if mode == "train" else {"mixer": new_mixer_cache}
-    return x, new_cache, {}
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +297,7 @@ class Model(ParamTree):
         """inputs: (B,1) tokens or (B,1,D) embeds; pos: int.
 
         Writes position ``pos`` of the attention caches in place; the
-        recurrent (xLSTM) states come back as new tensors.  Returns
+        recurrent (xLSTM, mamba) states come back as new tensors.  Returns
         (logits, cache).
         """
         cfg = self.cfg
@@ -311,13 +320,16 @@ class Model(ParamTree):
             if layer.mixer in ("attn", "attn_local"):
                 return {"mixer": attn_mod.init_attn_cache(
                     cfg, batch, max_len, dtype, self.device)}
+            if layer.mixer == "mamba":
+                return {"mixer": ssm_mod.init_mamba_cache(
+                    cfg, batch, dtype, self.device)}
             if layer.mixer == "mlstm":
                 return {"mixer": xlstm_mod.init_mlstm_cache(
                     cfg, batch, dtype, self.device)}
             if layer.mixer == "slstm":
                 return {"mixer": xlstm_mod.init_slstm_cache(
                     cfg, batch, dtype, self.device)}
-            raise _not_ported(layer.mixer)
+            raise ValueError(layer.mixer)
 
         return [{f"l{i}": layer_cache(layer)
                  for i, layer in enumerate(cfg.pattern)}

@@ -8,13 +8,13 @@ complete spans with durations (lineage stage transitions).  Timestamps
 are sim-time seconds scaled to microseconds, so the timeline you open
 is the *simulated* timeline, not wall clock.
 
-Export a trace with :meth:`repro_torch.core.Engine.export_trace`, and
-validate an existing file against the schema subset we emit::
+Run a demo and export a trace::
 
     PYTHONPATH=src python -m repro_torch.obs.trace run.json
 
-(The reference's demo-scenario export needs ``sweep/``, which is not
-ported yet; see ROADMAP.)
+Validate an existing file against the schema subset we emit::
+
+    PYTHONPATH=src python -m repro_torch.obs.trace --validate run.json
 
 The export is a pure function of telemetry state, so for a fixed
 (spec, seed) the JSON is byte-identical across processes — trace files
@@ -150,20 +150,66 @@ def validate_chrome_trace(obj) -> list[str]:
 # ---------------------------------------------------------------------------
 
 
+def _demo_engine(horizon: float, interval: float, chaos: bool):
+    # lazy imports keep repro_torch.obs free of sweep/engine dependencies for
+    # library users who only validate traces
+    from repro_torch.core.engine import Engine
+    from repro_torch.sweep.scenarios import build_scenario
+
+    params = {
+        "topology": "geo_wan", "n_hosts": 8, "n_brokers": 3,
+        "replication": 3, "n_topics": 2, "n_producers": 2,
+        "rate_kbps": 256.0, "msg_size": 512, "consumer_cost": 0.02,
+        "queue_bytes": 16 << 10, "chaos": 1 if chaos else 0,
+        "horizon": horizon, "seed": 0,
+        "telemetry": interval, "lineage_k": 4,
+    }
+    spec = build_scenario(params)
+    eng = Engine(spec, seed=0)
+    eng.run(until=horizon)
+    return eng
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.obs.trace",
-        description="Validate Chrome trace JSON.")
-    ap.add_argument("path", help="trace file to check")
+        description="Export (demo run) or validate Chrome trace JSON.")
+    ap.add_argument("path", help="trace file to write (or check with "
+                                 "--validate)")
+    ap.add_argument("--validate", action="store_true",
+                    help="validate an existing trace file instead of "
+                         "running the demo scenario")
+    ap.add_argument("--horizon", type=float, default=8.0)
+    ap.add_argument("--interval", type=float, default=0.5,
+                    help="telemetry sampling interval (sim seconds)")
+    ap.add_argument("--no-chaos", action="store_true",
+                    help="run the demo without the chaos fault plan")
     args = ap.parse_args(argv)
-    with open(args.path) as f:
-        obj = json.load(f)
+
+    if args.validate:
+        with open(args.path) as f:
+            obj = json.load(f)
+        problems = validate_chrome_trace(obj)
+        for p in problems:
+            print(f"INVALID: {p}")
+        if not problems:
+            print(f"{args.path}: valid "
+                  f"({len(obj['traceEvents'])} events)")
+        return 1 if problems else 0
+
+    eng = _demo_engine(args.horizon, args.interval, not args.no_chaos)
+    obj = write_trace(eng, args.path)
     problems = validate_chrome_trace(obj)
-    for p in problems:
-        print(f"INVALID: {p}")
-    if not problems:
-        print(f"{args.path}: valid ({len(obj['traceEvents'])} events)")
-    return 1 if problems else 0
+    if problems:
+        for p in problems:
+            print(f"INVALID: {p}")
+        return 1
+    print(f"wrote {args.path}: {len(obj['traceEvents'])} events, "
+          f"{eng.telemetry.n_samples} samples, "
+          f"{eng.telemetry.recorder.n} flight records")
+    print("open in https://ui.perfetto.dev  (Open trace file) or "
+          "chrome://tracing")
+    return 0
 
 
 if __name__ == "__main__":

@@ -35,6 +35,8 @@ FWD_CASES = [
     (1, 128, 4, 2, 32, 0, 50.0),
     (1, 96, 2, 2, 16, 24, 30.0),      # ragged tile edge
     (1, 300, 8, 4, 256, 100, 50.0),   # gemma2 head_dim, ragged
+    (4, 64, 24, 8, 64, 0, 0.0),       # granite-moe prefill, G=3
+    (2, 64, 32, 8, 128, 0, 0.0),      # jamba attention layer, G=4
 ]
 
 DECODE_CASES = [
@@ -45,6 +47,8 @@ DECODE_CASES = [
     (1, 256, 4, 2, 32, 200, 64, 0.0),
     (1, 128, 4, 4, 32, 100, 0, 50.0),
     (4, 80, 28, 4, 128, 70, 0, 0.0),  # qwen2-7b, G=7
+    (4, 80, 24, 8, 64, 70, 0, 0.0),   # granite-moe, G=3
+    (4, 80, 32, 8, 128, 70, 0, 0.0),  # jamba, G=4
 ]
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -200,8 +204,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     assert (fa.launches, fd.launches) == before
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma2-2b", "granite-34b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma2-2b", "granite-34b",
+                                  "granite-moe-3b-a800m", "jamba-v0.1-52b"])
 def test_model_on_card_matches_cpu_paths(arch, cuda):
+    """float32 compute; the MoE routing, the mamba scan and the attention
+    kernels on the card, the plain versions on the CPU."""
     cfg = reduce_for_smoke(get_config(arch))
     cpu = Model(cfg, device="cpu").init_params(
         torch.Generator().manual_seed(0))
@@ -218,7 +225,7 @@ def test_model_on_card_matches_cpu_paths(arch, cuda):
         nxt = toks[:, :1].to(dev)
         ld, _ = model.decode_step(cache, nxt, 40)
         outs.append((lg.cpu(), ld.cpu()))
-    n_attn = cfg.n_layers
+    n_attn = sum(layer.mixer.startswith("attn") for layer in cfg.layers())
     assert (fa.launches, fd.launches) == (before[0] + n_attn,
                                           before[1] + n_attn)
     for a, b in zip(*outs):

@@ -154,11 +154,20 @@ def test_kernel_modules_import_without_nvcc_or_triton():
 
 
 def test_emulator_imports_without_torch():
-    """``repro_torch.core`` imports torch only inside query bodies (the
-    emulator's import contract, ROADMAP "Import hygiene")."""
+    """``repro_torch.core`` and ``repro_torch.sweep`` import torch only
+    inside query bodies (the emulator's import contract, ROADMAP "Import
+    hygiene"), and the sweep's fork-server preload imports neither torch,
+    JAX nor ``repro``."""
     out = _run_python(
         "import sys\n"
         "import repro_torch.core, repro_torch.core.spe\n"
         "from repro_torch.kernels import cohort, netcalc\n"
-        "print('TORCH', 'torch' in sys.modules)\n")
-    assert "TORCH False" in out
+        "import repro_torch.sweep, repro_torch.obs\n"
+        "from repro_torch.sweep.runner import _PRELOAD\n"
+        "assert _PRELOAD == ['repro_torch.sweep.runner'], _PRELOAD\n"
+        "for name in _PRELOAD:\n"
+        "    __import__(name)\n"
+        "bad = sorted({m.split('.')[0] for m in sys.modules} & "
+        "{'torch', 'jax', 'jaxlib', 'repro'})\n"
+        "print('LOADED', bad)\n")
+    assert "LOADED []" in out
