@@ -64,7 +64,23 @@ Phases, each of which raises on failure:
          share, the attention kernels that ran) and peak memory, then one
          prefill of 256 tokens (the chunked scan) with finite logits and
          states; both kernels held against their plain versions and
-         timed at its shapes.
+         timed at its shapes;
+  (j)    training through the mesh step, on a process group of one NCCL
+         rank (a FileStore in a temporary directory): (j1)
+         granite-moe-3b-a800m at full width and depth with ``ep_shard``,
+         6 steps at 4 x 1024 through ``ElasticTrainer`` with the bundle of
+         ``make_step_bundle(cfg, shape, mesh)`` on the (1, 1) ("data",
+         "model") mesh, every leaf a DTensor: 64 flash_attention launches
+         per step and the expert-parallel route in every MoE call
+         asserted, wall per step, tokens/s, peak memory, model FLOPs share
+         (active parameters) and one profiled step; (j2) 2 full-width
+         layers in float32, one step of the mesh + EP route against the
+         mesh-free dense step (loss, every first moment, every routing
+         decision) and kernel against plain; (j3) a (1, 1, 1) ("pod",
+         "data", "model") mesh with int8 compression: the step's mean and
+         error feedback against the plain quantizer; (j4) restore_tree
+         onto the mesh's placements, the next loss equal to an unbroken
+         run's; the kernel held and timed at granite's training shape.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -73,6 +89,7 @@ result, when no GPU is present or the port is missing.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1222,6 +1239,7 @@ class observe_train:
 
     def __enter__(self):
         import torch
+        from repro_torch.distributed.sharding import view_as
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.runtime import ElasticTrainer
         self.saved = ElasticTrainer._compile
@@ -1233,8 +1251,10 @@ class observe_train:
 
             def observed(state, batch):
                 if obs.before is None:
-                    obs.before = {k: p.detach().cpu() for k, p in
-                                  state["params"].state_dict().items()}
+                    # a mesh state's leaf is a DTensor: its local tensor
+                    obs.before = {k: view_as(p).detach().to(
+                        "cpu", copy=True) for k, p in
+                        state["params"].state_dict().items()}
                 torch.cuda.synchronize()
                 n0 = fa.launches
                 t0 = time.perf_counter()
@@ -1319,7 +1339,7 @@ def phase_g3() -> dict:
         f"device memory {peak:.3f} GiB; model FLOPs per step {flops:.4g} "
         f"(8 N T), {flops / step_s / 1e12:.2f} TFLOP/s = "
         f"{flops / step_s / H100_BF16:.4f} of {H100_BF16:.3g}")
-    profile_train_step(trainer, state, step_s)
+    profile_train_step("g3", trainer, state, step_s)
     out = dict(launches=launches["flash_attention"], step_s=step_s,
                tokens_per_s=tokens / step_s, peak_gib=peak)
     del state, trainer
@@ -1328,11 +1348,11 @@ def phase_g3() -> dict:
     return out
 
 
-def profile_train_step(trainer, state, step_s) -> None:
+def profile_train_step(tag, trainer, state, step_s) -> dict:
     """One more step under torch.profiler: device time by kernel, the
     autograd function's backward (ref.attention recomputed and
     differentiated) and the AdamW update by their ranges, and the idle
-    share against the unprofiled step wall."""
+    share against the unprofiled step wall.  ``tag`` names the phase."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1346,8 +1366,8 @@ def profile_train_step(trainer, state, step_s) -> None:
                 return fn(*a, **k)
         return wrapped
 
-    ops._fa_bwd = ranged("g3.fa_bwd", saved[0])
-    AdamW.update = ranged("g3.adamw", saved[1])
+    ops._fa_bwd = ranged(f"{tag}.fa_bwd", saved[0])
+    AdamW.update = ranged(f"{tag}.adamw", saved[1])
     batch = trainer.batches(TRAIN_STEPS)
     try:
         torch.cuda.synchronize()
@@ -1360,34 +1380,39 @@ def profile_train_step(trainer, state, step_s) -> None:
     finally:
         ops._fa_bwd, AdamW.update = saved
     # the ranges' own device rows (their spans) are not kernels
-    rows = [r for r in device_rows(prof) if not r[2].startswith("g3.")]
+    rows = [r for r in device_rows(prof)
+            if not r[2].startswith(f"{tag}.")]
     busy = sum(r[0] for r in rows)
     ranges = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name.startswith("g3."):
+        if e.device_type == DeviceType.CPU and \
+                e.name.startswith(f"{tag}."):
             ranges[e.name] = ranges.get(e.name, 0.0) + \
                 e.device_time_total / 1e3
     fa_ms = sum(r[0] for r in rows if "fa_fwd" in r[2])
     gemm = [r for r in rows if any(s in r[2].lower() for s in (
         "gemm", "nvjet", "xmma", "cutlass"))]
     gemm_ms = sum(r[0] for r in gemm)
-    log(f"[g3] profiled step: wall {wall_ms:.3f} ms (unprofiled median "
+    log(f"[{tag}] profiled step: wall {wall_ms:.3f} ms (unprofiled median "
         f"{step_s * 1e3:.3f} ms), {sum(r[1] for r in rows)} kernels, device "
         f"busy {busy:.3f} ms: idle share {1 - busy / (step_s * 1e3):.4f} "
         f"of the unprofiled wall")
-    log(f"[g3]   flash_attention kernel {fa_ms:.3f} ms "
+    log(f"[{tag}]   flash_attention kernel {fa_ms:.3f} ms "
         f"({sum(r[1] for r in rows if 'fa_fwd' in r[2])} calls); "
         f"attention backward (ref.attention recomputed and differentiated, "
-        f"float32) {ranges.get('g3.fa_bwd', 0.0):.3f} ms; AdamW update "
-        f"{ranges.get('g3.adamw', 0.0):.3f} ms; GEMM kernels (all, the "
+        f"float32) {ranges.get(f'{tag}.fa_bwd', 0.0):.3f} ms; AdamW update "
+        f"{ranges.get(f'{tag}.adamw', 0.0):.3f} ms; GEMM kernels (all, the "
         f"attention backward's included) {gemm_ms:.3f} ms in "
         f"{sum(r[1] for r in gemm)} calls; other "
         f"{busy - fa_ms - gemm_ms:.3f} ms")
-    if ranges.get("g3.fa_bwd", 0.0) <= 0 or ranges.get("g3.adamw", 0.0) <= 0:
-        log("[g3]   (a range shows no device time: the profiler did not "
+    if min(ranges.get(f"{tag}.fa_bwd", 0.0),
+           ranges.get(f"{tag}.adamw", 0.0)) <= 0:
+        log(f"[{tag}]   (a range shows no device time: the profiler did not "
             "attribute kernels to it)")
     for ms, n, key in sorted(rows, reverse=True)[:10]:
-        log(f"[g3]   {ms:.3f} ms device, {n} calls: {key[:90]}")
+        log(f"[{tag}]   {ms:.3f} ms device, {n} calls: {key[:90]}")
+    return dict(busy_ms=busy, idle_share=1 - busy / (step_s * 1e3),
+                adamw_ms=ranges.get(f"{tag}.adamw", 0.0), kernels=rows)
 
 
 def phase_g4() -> None:
@@ -1486,8 +1511,8 @@ class record_routing:
         from repro_torch.models import moe
         self.saved, self.calls = moe.route, []
 
-        def recorded(router, xf, cfg):
-            out = self.saved(router, xf, cfg)
+        def recorded(router, xf, cfg, *group):
+            out = self.saved(router, xf, cfg, *group)
             self.calls.append((out[2], out[4]))
             return out
 
@@ -1721,6 +1746,424 @@ def phase_i(rnd) -> dict:
     return dict(launches=launches, timed=timed, errs=errs)
 
 
+# ---------------------------------------------------------------------------
+# (j) granite-moe-3b-a800m trained through the mesh step
+# ---------------------------------------------------------------------------
+
+# granite's training attention: q (4,1024,24,64), k/v 8 heads, causal
+GRANITE_TRAIN = dict(B=TRAIN_B, S=TRAIN_S, **GRANITE_DIMS)
+# (j2): one step of the mesh + EP route against the mesh-free dense step
+# from the same state and batch, float32 params and compute.  On one rank
+# the EP route computes what the dense route does (the local capacity is
+# the global one) with the same kernels, so the two agree to float32
+# rounding: loss rtol 1e-6, each first moment (0.1 of its clipped
+# gradient) within rtol = 1e-5, atol = 1e-5 of its leaf's largest entry,
+# and every routing decision equal.  Kernel against plain as (g2)'s
+# float32 gate (G2_TOL).
+J2_RTOL = 1e-5
+# (j4): the loss after restore_tree onto the mesh equals the unbroken
+# run's: the same state and kernels
+J4_RTOL = 1e-6
+
+
+class nccl_rank:
+    """A process group of one NCCL rank over a FileStore in a temporary
+    directory (no port to collide on), checked with one all-reduce;
+    destroyed on exit.  No fallback: if NCCL does not start, this
+    raises."""
+
+    def __enter__(self):
+        import os
+        import tempfile
+        import torch
+        import torch.distributed as dist
+        self.tmp = tempfile.TemporaryDirectory()
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(self.tmp.name, "s"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        t = torch.full((1,), 3.0, device="cuda")
+        dist.all_reduce(t)
+        if t.item() != 3.0:
+            raise AssertionError(f"[j] NCCL all-reduce of one rank gave {t}")
+        log(f"[j] NCCL process group: backend {dist.get_backend()}, world "
+            f"size {dist.get_world_size()}")
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        self.tmp.cleanup()
+
+
+class count_routes:
+    """Count the MoE layer's calls by route (``moe_apply`` calls them by
+    module name)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.saved = (moe._moe_apply_ep, moe._moe_apply_dense)
+        self.ep = self.dense = 0
+
+        def ep(*a, **k):
+            self.ep += 1
+            return self.saved[0](*a, **k)
+
+        def dense(*a, **k):
+            self.dense += 1
+            return self.saved[1](*a, **k)
+
+        moe._moe_apply_ep, moe._moe_apply_dense = ep, dense
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._moe_apply_ep, moe._moe_apply_dense = self.saved
+
+
+def granite_train_cfg(n_layers=None, dtype=None, **over):
+    """granite-moe-3b-a800m with ``ep_shard`` (and ``over``), cut to
+    ``n_layers`` and run in ``dtype`` where given."""
+    from repro_torch.configs import get_config
+    cfg = get_config(GRANITE)
+    cfg = dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, ep_shard=True), **over)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype,
+                                  compute_dtype=dtype)
+    return cfg
+
+
+def mesh_bundle(cfg, shape=(1, 1), axes=("data", "model")):
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import make_step_bundle
+    return make_step_bundle(cfg, ShapeCfg("t", TRAIN_S, TRAIN_B, "train"),
+                            make_mesh(shape, axes, DEV))
+
+
+def granite_batches(cfg):
+    import torch
+    from repro_torch.data.pipeline import make_source
+    src = make_source(cfg, TRAIN_S, seed=0)
+    return lambda step: {k: torch.as_tensor(v, device=DEV) for k, v in
+                         src.batch(step, 0, TRAIN_B).items()}
+
+
+def active_params(cfg, shapes) -> int:
+    """Parameters a token meets: every leaf but the embedding table (a
+    lookup) and the experts a token is not routed to (top_k of
+    num_experts of each expert leaf)."""
+    m = cfg.moe
+    n = 0
+    for key, t in shapes.items():
+        if key == "embed.embedding" and not cfg.tie_embeddings:
+            continue
+        share = m.top_k / m.num_experts if key.split(".")[-1] in (
+            "w_up", "w_gate", "w_down") and ".ffn." in key else 1.0
+        n += t.numel() * share
+    return int(n)
+
+
+def phase_j1() -> dict:
+    """granite-moe-3b-a800m at full width and depth (32 layers, bf16,
+    float32 AdamW, remat full) with ``ep_shard``: 6 steps at 4 x 1024
+    through ``ElasticTrainer`` with the bundle of ``make_step_bundle(cfg,
+    shape, mesh)`` on the (1, 1) ("data", "model") mesh, then one profiled
+    step."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import view_as
+    from repro_torch.kernels import flash_attention as fa, flash_decode as fd
+    from repro_torch.runtime import ElasticTrainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = granite_train_cfg()
+    bundle = mesh_bundle(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = bundle.init_fn(torch.Generator(device=DEV).manual_seed(0))
+    leaves = dict(state["params"].named_parameters())
+    if not all(isinstance(p, DTensor) for p in leaves.values()):
+        raise AssertionError("[j1] the state's leaves are not DTensors")
+    n_params = sum(p.numel() for p in leaves.values())
+    n_active = active_params(cfg, leaves)
+    with observe_train() as obs, count_routes() as routes:
+        trainer = ElasticTrainer(bundle, granite_batches(cfg),
+                                 log_fn=lambda s: None)
+        fa.launches = 0
+        fd.launches = 0
+        t0 = time.perf_counter()
+        state = trainer.run(state, steps=TRAIN_STEPS)
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": fa.launches,
+                    "flash_decode": fd.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # each attention layer's forward, and its recompute under remat
+    per_step = cfg.n_layers * (1 if cfg.remat == "none" else 2)
+    if obs.launches != [per_step] * TRAIN_STEPS or \
+            launches["flash_decode"]:
+        raise AssertionError(f"[j1] flash_attention launches per step "
+                             f"{obs.launches}, expected {per_step}; "
+                             f"{launches}")
+    if routes.ep != per_step * TRAIN_STEPS or routes.dense:
+        raise AssertionError(f"[j1] MoE routes: {routes.ep} expert-"
+                             f"parallel, {routes.dense} dense; expected "
+                             f"{per_step * TRAIN_STEPS} and 0")
+    losses = trainer.report.losses
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[j1] losses {losses}")
+    changed = 0
+    for key, p in state["params"].named_parameters():
+        changed += int((view_as(p).cpu() != obs.before[key]).sum())
+    if changed == 0:
+        raise AssertionError("[j1] no parameter moved")
+    tokens = TRAIN_B * TRAIN_S
+    step_s = statistics.median(obs.walls[1:])
+    flops = 8.0 * n_active * tokens
+    log(f"[j1] {GRANITE} full width and depth ({cfg.n_layers} layers, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, {n_params} bf16 "
+        f"params, {n_active} active per token, float32 AdamW, remat "
+        f"{cfg.remat}), ep_shard, mesh (1, 1) (data, model) on NCCL, batch "
+        f"{TRAIN_B} x {TRAIN_S}: losses {losses}; flash_attention launches "
+        f"per step {obs.launches}; MoE calls {routes.ep} expert-parallel, "
+        f"{routes.dense} dense; parameter entries changed {changed}/"
+        f"{n_params}; run wall {wall:.3f} s")
+    log(f"[j1] {gpu_line()}: wall per step {obs.walls} s; median of steps "
+        f"2-{TRAIN_STEPS} {step_s} s; {tokens / step_s} tokens/s; peak "
+        f"device memory {peak:.3f} GiB; model FLOPs per step {flops:.4g} "
+        f"(8 N T, N = {n_active} active: the attention, the router, "
+        f"{cfg.moe.top_k} of {cfg.moe.num_experts} experts, the norms and "
+        f"the head), {flops / step_s / 1e12:.2f} TFLOP/s = "
+        f"{flops / step_s / H100_BF16:.4f} of {H100_BF16:.3g}")
+    prof = profile_train_step("j1", trainer, state, step_s)
+    out = dict(launches=launches["flash_attention"], step_s=step_s,
+               tokens_per_s=tokens / step_s, peak_gib=peak,
+               flops_share=flops / step_s / H100_BF16,
+               idle_share=prof["idle_share"], adamw_ms=prof["adamw_ms"])
+    del state, trainer, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def one_step(bundle, weights, batch, plain=False):
+    """A fresh state with ``weights``, one step: (loss, first moments,
+    the routing decisions of every MoE call)."""
+    import torch
+    from repro_torch.distributed.sharding import view_as
+    from repro_torch.train import load_state
+    state = bundle.init_fn(torch.Generator(device=DEV).manual_seed(0))
+    sd = dict(state["params"].named_parameters())
+    load_state(state, {"params": weights, "opt": {
+        "m": {k: torch.zeros(p.shape, device=DEV) for k, p in sd.items()},
+        "v": {k: torch.zeros(p.shape, device=DEV) for k, p in sd.items()},
+        "step": torch.zeros((), dtype=torch.int32, device=DEV)}})
+    ctx = plain_attention() if plain else contextlib.nullcontext()
+    with ctx, record_routing() as rec:
+        state, metrics = bundle.step_fn(state, batch)
+    m = {k: view_as(t).float() for k, t in state["opt"]["m"].items()}
+    return float(metrics["loss"]), m, rec.calls, state
+
+
+def compare_steps(tag, a, b, loss_rtol, m_tol, decisions=True) -> dict:
+    """(loss, m, routing) of two one-step runs: the losses within
+    ``loss_rtol``, every first moment within ``m_tol`` (rtol, and atol of
+    its leaf's largest entry), the routing decisions counted (and held
+    equal with ``decisions``)."""
+    import torch
+    (la, ma, ra, _), (lb, mb, rb, _) = a, b
+    if abs(la - lb) > loss_rtol * abs(lb):
+        raise AssertionError(f"{tag} loss {la} vs {lb}")
+    worst = 0.0
+    for key, want in mb.items():
+        got = ma[key]
+        scale = want.abs().max().clamp(min=1e-30)
+        err = ((got - want).abs() / (m_tol * (want.abs() + scale))).max()
+        worst = max(worst, float(err) * m_tol)
+        if err > 1:
+            raise AssertionError(f"{tag} first moment of {key} off by "
+                                 f"{(got - want).abs().max().item()}")
+    if len(ra) != len(rb) or not ra:
+        raise AssertionError(f"{tag} MoE calls {len(ra)} vs {len(rb)}")
+    diff = sum(int((x[0] != y[0]).sum()) + int((x[1] != y[1]).sum())
+               for x, y in zip(ra, rb))
+    pairs = sum(ids.numel() for ids, _ in ra)
+    if decisions and diff:
+        raise AssertionError(f"{tag} {diff} routing decisions differ")
+    return dict(loss=(la, lb), worst=worst, routing_diff=diff, pairs=pairs,
+                calls=len(ra))
+
+
+def phase_j2() -> None:
+    """2 full-width granite layers, float32: the mesh + EP step against
+    the mesh-free dense step, then kernel against plain."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models import Model
+    from repro_torch.train import make_step_bundle
+    cfg = granite_train_cfg(n_layers=2, dtype="float32")
+    weights = Model(cfg, device=DEV).init_params(
+        torch.Generator(device=DEV).manual_seed(0)).state_dict()
+    batch = granite_batches(cfg)(0)
+    mesh = one_step(mesh_bundle(cfg), weights, batch)
+    dense = one_step(make_step_bundle(
+        cfg, ShapeCfg("t", TRAIN_S, TRAIN_B, "train")), weights, batch)
+    r = compare_steps("[j2] mesh+EP vs dense:", mesh, dense, J2_RTOL,
+                      J2_RTOL)
+    log(f"[j2] {GRANITE} full width, 2 layers, float32, batch {TRAIN_B} x "
+        f"{TRAIN_S}, one step: mesh (1, 1) + EP vs the mesh-free dense step:"
+        f" loss {r['loss'][0]} vs {r['loss'][1]}; first moments (every "
+        f"gradient leaf, clipped, x 0.1) worst {r['worst']} (tol "
+        f"{J2_RTOL}); routing decisions that differ {r['routing_diff']} "
+        f"of 2 x {r['pairs']} (expert ids, keep) over {r['calls']} MoE calls")
+    loss_rtol, grad_rel = G2_TOL["float32"]
+    plain = one_step(mesh_bundle(cfg), weights, batch, plain=True)
+    r = compare_steps("[j2] kernel vs plain:", mesh, plain, loss_rtol,
+                      grad_rel, decisions=False)
+    log(f"[j2] mesh + EP, kernel vs plain attention: loss {r['loss'][0]} vs "
+        f"{r['loss'][1]} (rtol {loss_rtol}); first moments worst "
+        f"{r['worst']} (tol {grad_rel}); routing decisions that differ "
+        f"{r['routing_diff']} of 2 x {r['pairs']}")
+    del mesh, dense, plain, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_j3() -> None:
+    """A (1, 1, 1) ("pod", "data", "model") mesh with int8 compression:
+    one step of the 2-layer model.  The averaged gradients and the new
+    error feedback are dequantize(quantize(g + ef)) and its rest, by the
+    plain functions, on the gradients the step computed."""
+    import torch
+    from repro_torch.distributed.sharding import view_as
+    from repro_torch.models.params import from_jax_params
+    from repro_torch.optim import compress
+    from repro_torch.train import steps
+    cfg = granite_train_cfg(n_layers=2, grad_compression="int8")
+    bundle = mesh_bundle(cfg, (1, 1, 1), ("pod", "data", "model"))
+    state = bundle.init_fn(torch.Generator(device=DEV).manual_seed(0))
+    seen = []
+    saved = steps.compressed_pod_allreduce
+
+    def captured(grads, ef, group):
+        out = saved(grads, ef, group)
+        seen.append((grads, ef, group) + out)
+        return out
+
+    steps.compressed_pod_allreduce = captured
+    try:
+        state, metrics = bundle.step_fn(state, granite_batches(cfg)(0))
+    finally:
+        steps.compressed_pod_allreduce = saved
+    (grads, ef, group, avg, new_ef), = seen
+    if group is not None:
+        raise AssertionError(f"[j3] a pod group of one rank: {group}")
+    # the reference's layout: a stacked leaf (all groups) has one scale
+    ef, avg, new_ef = (dict(tree_items(t)) for t in (ef, avg, new_ef))
+    n = 0
+    for path, g in tree_items(grads):
+        g32 = g.float() + ef[path]
+        want = compress.dequantize_int8(*compress.quantize_int8(g32))
+        if not (torch.equal(avg[path], want.to(g.dtype))
+                and torch.equal(new_ef[path], g32 - want)):
+            raise AssertionError(f"[j3] {path}: the compressed mean or the "
+                                 "error feedback differs from the plain "
+                                 "functions")
+        n += int((g32 - want != 0).sum())
+    kept = from_jax_params(cfg, seen[0][4])
+    for key, t in state["ef"].items():
+        if not torch.equal(view_as(t), kept[key]):
+            raise AssertionError(f"[j3] the state's error feedback of {key}"
+                                 " is not the step's")
+    if not math.isfinite(float(metrics["loss"])) or n == 0:
+        raise AssertionError(f"[j3] loss {metrics['loss']}, nonzero error "
+                             f"feedback entries {n}")
+    log(f"[j3] {GRANITE} 2 layers, bf16, mesh (1, 1, 1) (pod, data, model),"
+        f" int8 compression: one step, loss {float(metrics['loss'])}; the "
+        f"mean and the error feedback of all {len(avg)} leaves (in the "
+        f"reference's stacked layout: one scale per stacked leaf) equal "
+        f"dequantize(quantize(g + ef)) and its rest bit for bit; {n} nonzero "
+        f"error-feedback entries")
+    del state, grads, avg, seen, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_j4() -> None:
+    """restore_tree onto the mesh's placements: a checkpoint after step 1,
+    restored into a fresh state; step 2 from it gives the unbroken run's
+    loss."""
+    import tempfile
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import restore_tree, save_tree
+    from repro_torch.models.params import from_jax_state, to_jax_state
+    from repro_torch.train import load_state
+    cfg = granite_train_cfg(n_layers=2)
+    bundle = mesh_bundle(cfg)
+    batches = granite_batches(cfg)
+    state = bundle.init_fn(torch.Generator(device=DEV).manual_seed(0))
+    state, _ = bundle.step_fn(state, batches(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        save_tree(to_jax_state(cfg, state), tmp + "/step_1")
+        _, m = bundle.step_fn(state, batches(1))
+        unbroken = float(m["loss"])
+        del state
+        fresh = bundle.init_fn(torch.Generator(device=DEV).manual_seed(1))
+        shardings = to_jax_state(cfg, bundle.in_shardings[0])
+        tree = restore_tree(tmp + "/step_1",
+                            to_jax_state(cfg, fresh, device="meta"),
+                            shardings)
+    leaves = [t for _, t in tree_items(tree)]
+    if not all(isinstance(t, DTensor) and t.device.type == DEV
+               for t in leaves):
+        raise AssertionError("[j4] restore_tree did not place every leaf on "
+                             "the mesh")
+    load_state(fresh, from_jax_state(cfg, tree))
+    _, m = bundle.step_fn(fresh, batches(1))
+    restored = float(m["loss"])
+    if abs(restored - unbroken) > J4_RTOL * abs(unbroken):
+        raise AssertionError(f"[j4] loss after the restore {restored} vs "
+                             f"unbroken {unbroken}")
+    log(f"[j4] {GRANITE} 2 layers, bf16, mesh (1, 1): checkpoint after step "
+        f"1, restore_tree onto the bundle's placements ({len(leaves)} "
+        f"DTensor leaves on the card), step 2 loss {restored} vs the "
+        f"unbroken run's {unbroken} (rtol {J4_RTOL})")
+    del fresh, tree, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tree_items(tree, prefix=""):
+    """(path, leaf) of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def phase_j(rnd) -> dict:
+    """The slice's path: granite-moe training on the card through the mesh
+    step, on a process group of one NCCL rank."""
+    t0 = time.perf_counter()
+    with nccl_rank():
+        main = phase_j1()
+        phase_j2()
+        phase_j3()
+        phase_j4()
+    import torch
+    dims = [GRANITE_TRAIN[k] for k in ("B", "S", "NH", "KV", "hd")]
+    err = fwd_case(rnd, *dims, 0, 0.0, torch.bfloat16)
+    timed = time_prefill(rnd, "granite training shape", *dims)
+    log(f"[j] phase wall {time.perf_counter() - t0:.1f} s")
+    return dict(main, max_abs_err=err, timed=timed)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1743,6 +2186,7 @@ def main() -> int:
     train = phase_g(rnd)
     granite = phase_h(rnd)
     jamba = phase_i(rnd)
+    mesh_train = phase_j(rnd)
     kernels = []
     for name, src, replaces, design in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -1753,11 +2197,16 @@ def main() -> int:
         t = times[name]
         # training (g3): launches over its 6 steps, and the kernel timed at
         # gemma2-2b's training shape (local layers: window 4096)
-        tr = {"launches": 0}
+        tr = mtr = {"launches": 0}
         if name == "flash_attention":
             tr = {"launches": train["launches"],
                   "max_abs_err": train["max_abs_err"],
                   **train["timed"]["window 4096"]}
+            # granite-moe training through the mesh step (j1): its 6
+            # steps' launches, the kernel at q (4,1024,24,64), 8 KV heads
+            mtr = {"launches": mesh_train["launches"],
+                   "max_abs_err": mesh_train["max_abs_err"],
+                   **mesh_train["timed"]}
         # serving the MoE (h) and hybrid (i) paths: their launches, and the
         # kernel checked and timed at their shapes (hd=64 G=3; hd=128 G=4)
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -1765,6 +2214,7 @@ def main() -> int:
                         "max_abs_err": errs[name], **t,
                         "bound_share": t["bound_ms"] / t["ms"],
                         "design": design, "train": tr,
+                        "train_granite_moe_mesh": mtr,
                         **{key: {"launches": run["launches"][name],
                                  "max_abs_err": run["errs"][name],
                                  **run["timed"][name]}

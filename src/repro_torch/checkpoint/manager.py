@@ -11,8 +11,10 @@ snapshots the tree to host memory, then writes on a background thread.
 
 So a checkpoint of either package restores into the other; the train
 state is turned into the reference's tree (groups stacked) by
-``models.params.to_jax_state`` and back by ``from_jax_state``.  Restoring
-onto a mesh (the reference's ``shardings``) waits for ROADMAP A11.
+``models.params.to_jax_state`` and back by ``from_jax_state``.
+``restore`` places each leaf with the *target* sharding (a DTensor of this
+rank's chunk): restoring onto another mesh than the one that saved is how
+the driver reshards.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import distribute
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -89,11 +93,15 @@ def save_tree(tree, step_dir: str) -> None:
     os.rename(tmp, step_dir)
 
 
-def restore_tree(step_dir: str, template):
-    """Restore into ``template``'s tree structure (only its keys are read)
-    as tensors on the CPU; raises IOError on a CRC mismatch."""
+def restore_tree(step_dir: str, template, shardings=None):
+    """Restore into ``template``'s tree structure (only its keys are read);
+    raises IOError on a CRC mismatch.  A leaf is a tensor on the CPU, or,
+    where ``shardings`` (a tree parallel to ``template``, or None) holds a
+    ``NamedSharding``, a DTensor of this rank's chunk on that mesh's
+    device: the target mesh may differ from the one that saved."""
     with open(os.path.join(step_dir, "manifest.json")) as f:
         manifest = json.load(f)
+    flat_shardings = _flatten(shardings) if shardings is not None else {}
     flat = {}
     with np.load(os.path.join(step_dir, "arrays.npz")) as data:
         for key in _flatten(template):
@@ -107,7 +115,10 @@ def restore_tree(step_dir: str, template):
                     torch.bfloat16)
             else:
                 t = torch.from_numpy(stored.copy())
-            flat[key] = t.reshape(meta["shape"])
+            t = t.reshape(meta["shape"])
+            sh = flat_shardings.get(key)
+            flat[key] = (t if sh is None else
+                         distribute(t.to(sh.mesh.device_type), sh))
     return _unflatten(template, flat)
 
 
@@ -158,12 +169,13 @@ class CheckpointManager:
         else:
             _write()
 
-    def restore(self, template, step: Optional[int] = None):
+    def restore(self, template, shardings=None,
+                step: Optional[int] = None):
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
-        return step, restore_tree(self._step_dir(step), template)
+        return step, restore_tree(self._step_dir(step), template, shardings)
 
     def _gc(self) -> None:
         steps = self.steps()

@@ -1,0 +1,336 @@
+"""Logical-axis sharding rules, resolved per mesh with divisibility checks.
+
+Counterpart of ``repro/distributed/sharding.py``.  The model tags every
+parameter dim with a *logical* name ("embed", "ffn", "heads", ...; the
+``axes`` of ``models.params.Init``).  This module maps logical names onto
+mesh axes.  Resolution is defensive, as in the reference: a mesh axis is
+only assigned when (a) the dim size is divisible by the product of the
+mesh-axis sizes, and (b) the mesh axis is not already used by another dim
+of the same tensor, so MQA (kv=1), GQA kv=4 on a 16-way axis or 40 experts
+on 16 shards fall back to replication (or to the next dim).
+
+A resolved :class:`P` (the reference's ``PartitionSpec``) becomes DTensor
+placements with :func:`to_placements`: mesh dim *i* is ``Shard(d)`` if its
+axis names tensor dim *d*, ``Replicate()`` otherwise.  Where one dim is
+split over two axes (``("pod", "data")``) the first axis is the slower,
+which is JAX's chunk order and DTensor's default order alike.
+
+The rules read a mesh only through ``launch.mesh.mesh_axis_sizes``, so they
+work on a ``DeviceMesh`` and on a ``(names, shape)`` stand-in.  The
+reference's ``shard_map_compat`` has no counterpart: the port's mesh step
+is explicit SPMD already (one process per device, collectives written out,
+``train/steps.py``).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.launch.mesh import mesh_axis_sizes
+
+
+class _Unconstrained:
+    def __repr__(self) -> str:
+        return "UNCONSTRAINED"
+
+
+class P(tuple):
+    """A partition spec: per tensor dim, None (replicated), one mesh axis
+    name, or a tuple of axis names (the dim split over their product).
+    Trailing dims left out are replicated."""
+
+    UNCONSTRAINED = _Unconstrained()
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
+
+
+# Default logical-axis -> mesh-axes candidates.  Order within the tuple is
+# the sharding order; resolution drops axes that don't divide or collide.
+def logical_rules(cfg, mesh) -> dict[str, tuple[str, ...]]:
+    names = tuple(mesh_axis_sizes(mesh))
+    fsdp: tuple[str, ...] = ()
+    if getattr(cfg, "fsdp_params", False):
+        fsdp = tuple(a for a in ("pod", "data") if a in names)
+        if getattr(cfg, "grad_compression", "none") == "int8":
+            # compressed cross-pod training: FSDP stays within the pod,
+            # pods exchange int8 grads
+            fsdp = tuple(a for a in fsdp if a != "pod")
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    seq_axes: tuple[str, ...] = ()
+    if getattr(cfg, "seq_shard", False):
+        seq_axes = ("model",)     # sequence parallelism
+    return {
+        # activations
+        "batch": dp,
+        "act_batch": dp,
+        "act_tokens": dp,         # flattened (B*S) token dim
+        "seq": (),
+        "act_seq": seq_axes,
+        "cache_seq": (),          # overridden adaptively for decode caches
+        # parameters
+        "embed": fsdp,            # d_model dim of weights (ZeRO-3 when fsdp)
+        "vocab": ("model",),
+        "q_features": ("model",),
+        "kv_features": ("model",),
+        "heads": ("model",),
+        "kv_heads": ("model",),
+        "ffn": ("model",),
+        "expert": ("model",),
+        "expert_ffn": ("model",),
+        "inner": ("model",),      # mamba/mlstm inner dim
+        "head_dim": (),
+        "layers": (),             # the reference's stacked-scan leading dim
+        "conv": (),
+        "state": (),
+        "low_rank": (),
+    }
+
+
+def resolve_spec(axes: tuple, shape: tuple, rules: dict, mesh) -> P:
+    """Resolve one tensor's logical axes into a :class:`P`."""
+    sizes = mesh_axis_sizes(mesh)
+    used: set[str] = set()
+    out: list = []
+    for dim, name in zip(shape, axes):
+        cand = rules.get(name, ()) if name else ()
+        cand = tuple(a for a in cand if a in sizes and a not in used)
+        # greedily keep the longest prefix of candidate axes that divides dim
+        picked: tuple[str, ...] = ()
+        for i in range(len(cand), 0, -1):
+            prefix = cand[:i]
+            if dim % math.prod(sizes[a] for a in prefix) == 0:
+                picked = prefix
+                break
+        if picked:
+            used.update(picked)
+            out.append(picked if len(picked) > 1 else picked[0])
+        else:
+            out.append(None)
+    while out and out[-1] is None:
+        out.pop()
+    return P(*out)
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def resolve_axes_tree(axes_tree, shapes_tree, cfg, mesh, extra_rules=None):
+    """Resolve a tree of logical axes (dicts and lists, keyed like the
+    ``state_dict`` or the cache) against a parallel tree of tensors (or
+    anything with ``.shape``) into a tree of :class:`P`.  ``extra_rules``
+    override entries of :func:`logical_rules` (decode caches)."""
+    rules = logical_rules(cfg, mesh)
+    if extra_rules:
+        rules.update(extra_rules)
+
+    def walk(axes, vals):
+        if _is_axes(axes):
+            return resolve_spec(axes, tuple(vals.shape), rules, mesh)
+        if isinstance(axes, dict):
+            return {k: walk(a, vals[k]) for k, a in axes.items()}
+        return [walk(a, v) for a, v in zip(axes, vals)]
+
+    return walk(axes_tree, shapes_tree)
+
+
+def batch_spec(mesh, extra_dims: int = 1,
+               batch_size: Optional[int] = None) -> P:
+    """Spec for batch-major activations: batch over (pod, data).
+
+    With ``batch_size``, axes that don't divide are dropped (suffix-first),
+    so a batch of 1 replicates instead of failing.
+    """
+    sizes = mesh_axis_sizes(mesh)
+    axes = tuple(a for a in ("pod", "data") if a in sizes)
+    if batch_size is not None:
+        while axes and batch_size % math.prod(sizes[a] for a in axes):
+            axes = axes[:-1]
+    lead = axes if len(axes) > 1 else (axes[0] if axes else None)
+    return P(lead, *([None] * extra_dims))
+
+
+def to_placements(spec, mesh) -> list:
+    """DTensor placements of ``spec`` on ``mesh``, one per mesh dim.
+
+    ``UNCONSTRAINED`` entries are replicated here (:func:`act_constrain`
+    keeps a tensor's own placement for them)."""
+    names = list(mesh_axis_sizes(mesh))
+    out: list = [Replicate()] * len(names)
+    for d, part in enumerate(spec):
+        if part is None or part is P.UNCONSTRAINED:
+            continue
+        idx = [names.index(a) for a in
+               (part if isinstance(part, tuple) else (part,))]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec}: axes of dim {d} are not in the mesh's "
+                             f"order {names}, which DTensor cannot express")
+        for i in idx:
+            out[i] = Shard(d)
+    return out
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the reference's ``jax.sharding.NamedSharding``)."""
+
+    mesh: object
+    spec: P
+
+    @property
+    def placements(self) -> list:
+        return to_placements(self.spec, self.mesh)
+
+
+def local_chunk(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's chunk of ``full`` under ``placements`` (a view).
+
+    Several mesh dims sharding one tensor dim split it in mesh order, the
+    first the slowest, as DTensor lays them out."""
+    coord = mesh.get_coordinate()
+    sizes = tuple(mesh.shape)
+    out = full
+    for d in range(full.dim()):
+        dims = [i for i, p in enumerate(placements)
+                if isinstance(p, Shard) and p.dim == d]
+        if not dims:
+            continue
+        n = math.prod(sizes[i] for i in dims)
+        if full.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(full.shape)} does not "
+                             f"split into {n} chunks")
+        idx = 0
+        for i in dims:
+            idx = idx * sizes[i] + coord[i]
+        step = full.shape[d] // n
+        out = out.narrow(d, idx * step, step)
+    return out
+
+
+def distribute(full: torch.Tensor, sharding: NamedSharding) -> DTensor:
+    """A DTensor on ``sharding.mesh`` holding this rank's chunk of
+    ``full``, which every rank holds whole (no communication).  The chunk
+    is the tensor itself, not a copy, where nothing is split; otherwise it
+    is copied so that ``full`` can be freed."""
+    placements = sharding.placements
+    local = local_chunk(full, sharding.mesh, placements)
+    if local.numel() != full.numel():
+        local = local.contiguous().clone()
+    return DTensor.from_local(local, sharding.mesh, placements,
+                              run_check=False, shape=full.shape,
+                              stride=full.contiguous().stride())
+
+
+@torch.no_grad()
+def view_as(t, placements=None) -> torch.Tensor:
+    """The plain tensor this rank computes with: a DTensor's value under
+    ``placements`` (default all ``Replicate()``: the full value).  Where
+    every mesh dim whose placement differs has size 1, that is the local
+    tensor itself, with no copy; otherwise the DTensor is redistributed.
+    A plain tensor is returned as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    if placements is None:
+        placements = [Replicate()] * mesh.ndim
+    if all(n == 1 or a == b for n, a, b in
+           zip(mesh.shape, t.placements, placements)):
+        return t.to_local()
+    return t.redistribute(mesh, placements).to_local()
+
+
+def constrain(x, spec: P):
+    """``with_sharding_constraint``: a DTensor is redistributed to ``spec``
+    on its own mesh; a plain tensor (no mesh) is returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, to_placements(spec, x.device_mesh))
+
+
+def axis_groups(mesh, axes) -> list:
+    """The process groups of the named mesh dims of size > 1, in mesh
+    order (a collective over several axes runs over each in turn)."""
+    sizes = mesh_axis_sizes(mesh)
+    return [mesh.get_group(a) for a in sizes if a in axes and sizes[a] > 1]
+
+
+# ---------------------------------------------------------------------------
+# Activation constraints (ambient, set by the mesh train step)
+# ---------------------------------------------------------------------------
+
+_ACT_CTX: list = []          # stack of (mesh, rules)
+
+
+class activation_sharding:
+    """Context manager: model code resolves against this mesh while a step
+    runs (the MoE layer's expert-parallel and gathered routes read it
+    through :func:`current_mesh`).  No context: single-device code.
+    ``exclude`` drops mesh axes from every rule: the compressed step runs
+    each pod's gradients on their own, as the reference's pod-manual
+    region does."""
+
+    def __init__(self, mesh, cfg, exclude: tuple = ()):
+        if mesh is None:
+            self.entry = None
+        else:
+            rules = logical_rules(cfg, mesh)
+            if exclude:
+                rules = {k: tuple(a for a in v if a not in exclude)
+                         for k, v in rules.items()}
+            self.entry = (mesh, rules)
+
+    def __enter__(self):
+        if self.entry is not None:
+            _ACT_CTX.append(self.entry)
+        return self
+
+    def __exit__(self, *exc):
+        if self.entry is not None:
+            _ACT_CTX.pop()
+        return False
+
+
+def current_mesh():
+    """The mesh of the innermost activation-sharding context (or None)."""
+    return _ACT_CTX[-1][0] if _ACT_CTX else None
+
+
+def current_rules() -> dict:
+    """The rules of the innermost activation-sharding context ({} if
+    none)."""
+    return _ACT_CTX[-1][1] if _ACT_CTX else {}
+
+
+def act_constrain(x, logical_axes: tuple):
+    """Pin an activation's placement by logical axis names (or None).
+
+    The mesh step computes on plain local tensors (each rank its own rows,
+    ``train/steps.py``), so there this returns ``x`` unchanged, as it does
+    outside a context.  A DTensor is redistributed to the resolved spec;
+    a dim whose rule exists but fails divisibility keeps the placement it
+    has (the reference's ``UNCONSTRAINED``), and a ``None``-named dim is
+    replicated."""
+    if not _ACT_CTX or not isinstance(x, DTensor):
+        return x
+    mesh, rules = _ACT_CTX[-1]
+    spec = resolve_spec(logical_axes, tuple(x.shape), rules, mesh)
+    parts = list(spec) + [None] * (x.ndim - len(spec))
+    if all(p is None for p in parts):
+        return x
+    free = {d for d, (name, p) in enumerate(zip(logical_axes, parts))
+            if p is None and name is not None and rules.get(name)}
+    target = to_placements(P(*parts), mesh)
+    for i, (have, want) in enumerate(zip(x.placements, target)):
+        if isinstance(have, Shard) and have.dim in free \
+                and want == Replicate():
+            target[i] = have
+    return x.redistribute(mesh, target)

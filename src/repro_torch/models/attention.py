@@ -61,15 +61,15 @@ def init_attn(cfg) -> dict:
     d, hd = cfg.d_model, cfg.head_dim_
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     p = {
-        "wq": dense_init((d, nh * hd)),
-        "wk": dense_init((d, nkv * hd)),
-        "wv": dense_init((d, nkv * hd)),
-        "wo": dense_init((nh * hd, d)),
+        "wq": dense_init((d, nh * hd), ("embed", "q_features")),
+        "wk": dense_init((d, nkv * hd), ("embed", "kv_features")),
+        "wv": dense_init((d, nkv * hd), ("embed", "kv_features")),
+        "wo": dense_init((nh * hd, d), ("q_features", "embed")),
     }
     if cfg.qkv_bias:
-        p["bq"] = zeros_init((nh * hd,))
-        p["bk"] = zeros_init((nkv * hd,))
-        p["bv"] = zeros_init((nkv * hd,))
+        p["bq"] = zeros_init((nh * hd,), ("q_features",))
+        p["bk"] = zeros_init((nkv * hd,), ("kv_features",))
+        p["bv"] = zeros_init((nkv * hd,), ("kv_features",))
     return p
 
 
@@ -266,3 +266,8 @@ def init_attn_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                              device=device),
             "v": torch.zeros((batch, kv, max_len, hd), dtype=dtype,
                              device=device)}
+
+
+def attn_cache_axes() -> dict:
+    return {"k": ("batch", "kv_heads", "head_dim", "cache_seq"),
+            "v": ("batch", "kv_heads", "cache_seq", "head_dim")}

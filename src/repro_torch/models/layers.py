@@ -21,7 +21,7 @@ from repro_torch.models.params import (
 
 
 def init_rmsnorm(d: int) -> dict:
-    return {"scale": ones_init((d,))}
+    return {"scale": ones_init((d,), ("embed",))}
 
 
 def rmsnorm(params, x, eps: float, *, zero_centered: bool = False):
@@ -42,9 +42,10 @@ def rmsnorm(params, x, eps: float, *, zero_centered: bool = False):
 
 def init_mlp(cfg, d_ff: int | None = None) -> dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    p = {"w_up": dense_init((d, f)), "w_down": dense_init((f, d))}
+    p = {"w_up": dense_init((d, f), ("embed", "ffn")),
+         "w_down": dense_init((f, d), ("ffn", "embed"))}
     if cfg.gated_mlp:
-        p["w_gate"] = dense_init((d, f))
+        p["w_gate"] = dense_init((d, f), ("embed", "ffn"))
     return p
 
 
@@ -71,9 +72,11 @@ def mlp(params, x, cfg):
 
 
 def init_embed(cfg) -> dict:
-    p = {"embedding": embed_init((cfg.vocab_size, cfg.d_model))}
+    p = {"embedding": embed_init((cfg.vocab_size, cfg.d_model),
+                                    ("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        p["unembed"] = dense_init((cfg.d_model, cfg.vocab_size))
+        p["unembed"] = dense_init((cfg.d_model, cfg.vocab_size),
+                                  ("embed", "vocab"))
     return p
 
 

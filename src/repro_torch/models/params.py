@@ -24,6 +24,9 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import NamedSharding, P
 
 
 def resolve_device(device=None) -> torch.device:
@@ -41,47 +44,60 @@ def dtype_of(name: str) -> torch.dtype:
 
 @dataclass(frozen=True)
 class Init:
-    """A leaf to be created: its shape, how it is drawn, and its dtype.
+    """A leaf to be created: its shape, its logical axes, how it is drawn,
+    and its dtype.
 
-    ``dtype`` None takes the tree's ``param_dtype``; the reference keeps
-    some leaves in float32 whatever that is (the xLSTM gate biases and
-    recurrent weights).  ``scale`` replaces a dense leaf's
-    ``1/sqrt(fan_in)``.  A ``const`` leaf is split along its first axis
-    into ``len(values)`` equal blocks, block ``j`` filled with
-    ``values[j]``.  A ``log_arange`` leaf (the mamba ``A_log``) holds
-    ``log(1..N)`` along its last axis, N = ``shape[-1]``, in every row.
+    ``axes`` names each dim with a logical axis of
+    ``distributed.sharding.logical_rules`` ("embed", "ffn", "expert", ...)
+    or None, as the reference's ``pmeta`` does; the sharding rules turn
+    them into a placement on any mesh.  ``dtype`` None takes the tree's
+    ``param_dtype``; the reference keeps some leaves in float32 whatever
+    that is (the xLSTM gate biases and recurrent weights).  ``scale``
+    replaces a dense leaf's ``1/sqrt(fan_in)``.  A ``const`` leaf is split
+    along its first axis into ``len(values)`` equal blocks, block ``j``
+    filled with ``values[j]``.  A ``log_arange`` leaf (the mamba
+    ``A_log``) holds ``log(1..N)`` along its last axis, N = ``shape[-1]``,
+    in every row.
     """
 
     shape: tuple
+    axes: tuple
     kind: str  # dense | embed | const | log_arange
     dtype: Optional[str] = None
     scale: Optional[float] = None
     values: tuple = ()
 
+    def __post_init__(self):
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} do not match shape "
+                             f"{self.shape}")
 
-def dense_init(shape, dtype: Optional[str] = None,
+
+def dense_init(shape, axes, dtype: Optional[str] = None,
                scale: Optional[float] = None) -> Init:
-    return Init(tuple(shape), "dense", dtype, scale)
+    return Init(tuple(shape), tuple(axes), "dense", dtype, scale)
 
 
-def embed_init(shape) -> Init:
-    return Init(tuple(shape), "embed")
+def embed_init(shape, axes) -> Init:
+    return Init(tuple(shape), tuple(axes), "embed")
 
 
-def const_init(shape, *values: float, dtype: Optional[str] = None) -> Init:
-    return Init(tuple(shape), "const", dtype, values=tuple(values))
+def const_init(shape, axes, *values: float,
+               dtype: Optional[str] = None) -> Init:
+    return Init(tuple(shape), tuple(axes), "const", dtype,
+                values=tuple(values))
 
 
-def log_arange_init(shape, dtype: Optional[str] = None) -> Init:
-    return Init(tuple(shape), "log_arange", dtype)
+def log_arange_init(shape, axes, dtype: Optional[str] = None) -> Init:
+    return Init(tuple(shape), tuple(axes), "log_arange", dtype)
 
 
-def zeros_init(shape, dtype: Optional[str] = None) -> Init:
-    return const_init(shape, 0.0, dtype=dtype)
+def zeros_init(shape, axes, dtype: Optional[str] = None) -> Init:
+    return const_init(shape, axes, 0.0, dtype=dtype)
 
 
-def ones_init(shape, dtype: Optional[str] = None) -> Init:
-    return const_init(shape, 1.0, dtype=dtype)
+def ones_init(shape, axes, dtype: Optional[str] = None) -> Init:
+    return const_init(shape, axes, 1.0, dtype=dtype)
 
 
 def draw_(p: torch.Tensor, init: Init, gen: torch.Generator) -> None:
@@ -196,9 +212,21 @@ def from_jax_params(cfg, tree) -> dict:
     return out
 
 
+def _leaf_to(t: torch.Tensor, device, copy: bool = False) -> torch.Tensor:
+    """``t`` on ``device``; a DTensor's full value, gathered from its mesh
+    (on ``meta``: its shape alone)."""
+    if isinstance(t, DTensor):
+        if torch.device(device).type == "meta":
+            return torch.empty(t.shape, dtype=t.dtype, device="meta")
+        t = t.full_tensor()
+    return t.detach().to(device, copy=copy)
+
+
 def to_jax_params(cfg, sd: dict, device="cpu") -> dict:
     """A port ``state_dict`` (or a dict keyed like one) -> the reference's
-    nested parameter tree, every leaf copied to ``device``.
+    nested parameter tree, every leaf copied to ``device`` (a DTensor's
+    full value).  Leaves may also be ``NamedSharding``s: a stacked one
+    gains a leading replicated dim (the checkpoint layout's shardings).
 
     The inverse of :func:`from_jax_params`: with ``cfg.scan_layers`` the
     ``groups.<i>.<path>`` entries are stacked along a leading group axis
@@ -220,12 +248,16 @@ def to_jax_params(cfg, sd: dict, device="cpu") -> dict:
     def stack(trees):
         if isinstance(trees[0], dict):
             return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return torch.stack([t.detach().to(device) for t in trees])
+        if isinstance(trees[0], NamedSharding):
+            return NamedSharding(trees[0].mesh, P(None, *trees[0].spec))
+        return torch.stack([_leaf_to(t, device) for t in trees])
 
     def copy(node):
         if isinstance(node, dict):
             return {k: copy(v) for k, v in node.items()}
-        return node.detach().to(device, copy=True)
+        if isinstance(node, NamedSharding):
+            return node
+        return _leaf_to(node, device, copy=True)
 
     tree = copy(tree)
     tree["groups"] = (stack(per_group) if cfg.scan_layers
@@ -235,25 +267,38 @@ def to_jax_params(cfg, sd: dict, device="cpu") -> dict:
 
 def from_jax_state(cfg, state) -> dict:
     """The reference's train state ``{"params", "opt": {"m", "v", "step"}}``
-    (numpy arrays or torch tensors) -> the port's, as tensors on the CPU:
-    ``{"params": state_dict, "opt": {"m": {key: t}, "v": {key: t},
-    "step": int32 scalar}}`` with the moments keyed like the
-    ``state_dict``."""
+    and, under int8 compression, ``"ef"`` (numpy arrays or torch tensors,
+    DTensors too) -> the port's: ``{"params": state_dict, "opt": {"m":
+    {key: t}, "v": {key: t}, "step": int32 scalar}, "ef": {key: t}}``
+    with the moments keyed like the ``state_dict``."""
     opt = state["opt"]
-    return {"params": from_jax_params(cfg, state["params"]),
-            "opt": {"m": from_jax_params(cfg, opt["m"]),
-                    "v": from_jax_params(cfg, opt["v"]),
-                    "step": _to_tensor(opt["step"]).to(torch.int32)}}
+    out = {"params": from_jax_params(cfg, state["params"]),
+           "opt": {"m": from_jax_params(cfg, opt["m"]),
+                   "v": from_jax_params(cfg, opt["v"]),
+                   "step": _to_tensor(opt["step"]).to(torch.int32)}}
+    if "ef" in state:
+        out["ef"] = from_jax_params(cfg, state["ef"])
+    return out
 
 
 def to_jax_state(cfg, state, device="cpu") -> dict:
-    """The port's train state ``{"params": Model, "opt": ...}`` -> the
-    reference's tree (groups stacked as :func:`to_jax_params` does), every
-    leaf a copy on ``device``: ``cpu`` for a host snapshot, ``meta`` for
-    the tree's shapes alone."""
+    """The port's train state ``{"params": Model, "opt": ..., "ef"}`` ->
+    the reference's tree (groups stacked as :func:`to_jax_params` does),
+    every leaf a copy on ``device``: ``cpu`` for a host snapshot, ``meta``
+    for the tree's shapes alone.  On a mesh every rank calls it (a
+    DTensor's full value is gathered).  The state's shardings
+    (``StepBundle.in_shardings[0]``, ``params`` keyed like the
+    ``state_dict``) convert alike, into the checkpoint's layout."""
     opt = state["opt"]
-    return {"params": to_jax_params(cfg, state["params"].state_dict(),
-                                    device),
-            "opt": {"m": to_jax_params(cfg, opt["m"], device),
-                    "v": to_jax_params(cfg, opt["v"], device),
-                    "step": opt["step"].detach().to(device, copy=True)}}
+    params = state["params"]
+    if isinstance(params, nn.Module):
+        params = params.state_dict()
+    step = opt["step"]
+    out = {"params": to_jax_params(cfg, params, device),
+           "opt": {"m": to_jax_params(cfg, opt["m"], device),
+                   "v": to_jax_params(cfg, opt["v"], device),
+                   "step": (step if isinstance(step, NamedSharding)
+                            else _leaf_to(step, device, copy=True))}}
+    if "ef" in state:
+        out["ef"] = to_jax_params(cfg, state["ef"], device)
+    return out

@@ -17,8 +17,7 @@ so they round differently: the tests hold the port to the reference at
 float32 atol = rtol = 2e-5.
 
 The JAX package has no Pallas kernel for the scan, so this stays plain
-PyTorch, as the reference's stays ``jnp``.  ``mamba_cache_axes`` comes
-with the distribution slice (ROADMAP A11).
+PyTorch, as the reference's stays ``jnp``.
 """
 from __future__ import annotations
 
@@ -38,16 +37,18 @@ def init_mamba(cfg) -> dict:
     di = cfg.d_inner_mamba
     dtr = m.resolved_dt_rank(d)
     return {
-        "in_proj": dense_init((d, 2 * di)),
-        "conv_w": dense_init((m.d_conv, di)),
-        "conv_b": zeros_init((di,)),
-        "x_proj": dense_init((di, dtr + 2 * m.d_state)),
-        "dt_proj": dense_init((dtr, di)),
-        "dt_bias": zeros_init((di,)),
+        "in_proj": dense_init((d, 2 * di), ("embed", "inner")),
+        "conv_w": dense_init((m.d_conv, di), ("conv", "inner")),
+        "conv_b": zeros_init((di,), ("inner",)),
+        "x_proj": dense_init((di, dtr + 2 * m.d_state),
+                             ("inner", "low_rank")),
+        "dt_proj": dense_init((dtr, di), ("low_rank", "inner")),
+        "dt_bias": zeros_init((di,), ("inner",)),
         # A initialized to -[1..N] per channel (S4D-real init)
-        "A_log": log_arange_init((di, m.d_state), dtype="float32"),
-        "D": ones_init((di,), dtype="float32"),
-        "out_proj": dense_init((di, d)),
+        "A_log": log_arange_init((di, m.d_state), ("inner", "state"),
+                                 dtype="float32"),
+        "D": ones_init((di,), ("inner",), dtype="float32"),
+        "out_proj": dense_init((di, d), ("inner", "embed")),
     }
 
 
@@ -163,3 +164,8 @@ def init_mamba_cache(cfg, batch: int, dtype=torch.bfloat16, device=None):
         "ssm": torch.zeros((batch, di, m.d_state), dtype=torch.float32,
                            device=device),
     }
+
+
+def mamba_cache_axes() -> dict:
+    return {"conv": ("batch", "conv", "inner"),
+            "ssm": ("batch", "inner", "state")}

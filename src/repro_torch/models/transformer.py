@@ -311,6 +311,37 @@ class Model(ParamTree):
                       zero_centered=_zc(cfg))
         return L.logits(self.embed, x, cfg), new_cache
 
+    # --- logical axes ----------------------------------------------------------
+
+    def param_axes(self) -> dict:
+        """The logical axes of every leaf, keyed like the ``state_dict``
+        (the reference's ``param_axes`` with groups unrolled: a leaf's axes
+        are the reference's stacked axes without the leading "layers")."""
+        return {k: p.init.axes for k, p in self.named_parameters()}
+
+    def param_shapes(self) -> tuple[dict, dict]:
+        """(meta tensors keyed like the ``state_dict``, ``param_axes()``):
+        the shapes and dtypes of the tree, allocating nothing."""
+        meta = Model(self.cfg, device="meta")
+        return dict(meta.named_parameters()), meta.param_axes()
+
+    def cache_axes(self) -> list:
+        """Logical axes of :meth:`init_cache`'s tree, one dict per group."""
+        def layer_axes(layer: Layer):
+            if layer.mixer in ("attn", "attn_local"):
+                return {"mixer": attn_mod.attn_cache_axes()}
+            if layer.mixer == "mamba":
+                return {"mixer": ssm_mod.mamba_cache_axes()}
+            if layer.mixer == "mlstm":
+                return {"mixer": xlstm_mod.mlstm_cache_axes()}
+            if layer.mixer == "slstm":
+                return {"mixer": xlstm_mod.slstm_cache_axes()}
+            raise ValueError(layer.mixer)
+
+        return [{f"l{i}": layer_axes(layer)
+                 for i, layer in enumerate(self.cfg.pattern)}
+                for _ in range(self.cfg.n_groups)]
+
     # --- caches -------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):

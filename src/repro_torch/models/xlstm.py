@@ -39,18 +39,18 @@ def init_mlstm(cfg) -> dict:
     H = cfg.n_heads
     K = cfg.xlstm.conv_dim
     return {
-        "up_proj": dense_init((d, 2 * di)),
-        "conv_w": dense_init((K, di)),
-        "conv_b": zeros_init((di,)),
-        "wq": dense_init((di, di)),
-        "wk": dense_init((di, di)),
-        "wv": dense_init((di, di)),
-        "w_if": dense_init((di, 2 * H)),
-        "b_i": zeros_init((H,), dtype="float32"),
-        "b_f": const_init((H,), 3.0, dtype="float32"),
-        "skip": ones_init((di,)),
-        "norm_scale": ones_init((di,)),
-        "down_proj": dense_init((di, d)),
+        "up_proj": dense_init((d, 2 * di), ("embed", "inner")),
+        "conv_w": dense_init((K, di), ("conv", "inner")),
+        "conv_b": zeros_init((di,), ("inner",)),
+        "wq": dense_init((di, di), ("inner", "inner")),
+        "wk": dense_init((di, di), ("inner", "inner")),
+        "wv": dense_init((di, di), ("inner", "inner")),
+        "w_if": dense_init((di, 2 * H), ("inner", "heads")),
+        "b_i": zeros_init((H,), ("heads",), dtype="float32"),
+        "b_f": const_init((H,), ("heads",), 3.0, dtype="float32"),
+        "skip": ones_init((di,), ("inner",)),
+        "norm_scale": ones_init((di,), ("inner",)),
+        "down_proj": dense_init((di, d), ("inner", "embed")),
     }
 
 
@@ -200,6 +200,13 @@ def init_mlstm_cache(cfg, batch: int, dtype=torch.bfloat16,
     }
 
 
+def mlstm_cache_axes() -> dict:
+    return {"conv": ("batch", "conv", "inner"),
+            "C": ("batch", "heads", "head_dim", "head_dim"),
+            "n": ("batch", "heads", "head_dim"),
+            "m": ("batch", "heads")}
+
+
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
@@ -212,13 +219,16 @@ def init_slstm(cfg) -> dict:
     hf = int(cfg.xlstm.slstm_proj_factor * d)
     return {
         # input weights for gates (i, f, z, o)
-        "w": dense_init((d, 4 * d)),
+        "w": dense_init((d, 4 * d), ("embed", "inner")),
         # block-diagonal (per-head) recurrent weights for 4 gates
-        "r": dense_init((4, H, dh, dh), dtype="float32", scale=0.05),
-        "b": const_init((4 * d,), 0.0, 3.0, 0.0, 0.0, dtype="float32"),
-        "norm_scale": ones_init((d,)),
-        "ffn_up": dense_init((d, hf)),
-        "ffn_down": dense_init((hf, d)),
+        "r": dense_init((4, H, dh, dh),
+                        (None, "heads", "head_dim", "head_dim"),
+                        dtype="float32", scale=0.05),
+        "b": const_init((4 * d,), ("inner",), 0.0, 3.0, 0.0, 0.0,
+                        dtype="float32"),
+        "norm_scale": ones_init((d,), ("embed",)),
+        "ffn_up": dense_init((d, hf), ("embed", "ffn")),
+        "ffn_down": dense_init((hf, d), ("ffn", "embed")),
     }
 
 
@@ -293,3 +303,8 @@ def init_slstm_cache(cfg, batch: int, dtype=torch.bfloat16,
     return {"c": z(), "n": z(), "h": z(),
             "m": torch.full(shape, M_INIT, dtype=torch.float32,
                             device=device)}
+
+
+def slstm_cache_axes() -> dict:
+    axes = ("batch", "heads", "head_dim")
+    return {"c": axes, "n": axes, "h": axes, "m": axes}

@@ -72,12 +72,19 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, grads: dict, opt_state: dict, params: dict):
-        """Updates ``params`` and ``opt_state`` in place; returns both."""
+    def update(self, grads: dict, opt_state: dict, params: dict,
+               norm: Optional[torch.Tensor] = None):
+        """Updates ``params`` and ``opt_state`` in place; returns both.
+
+        ``norm`` is the gradients' global norm where ``grads`` holds only
+        this rank's chunks of them (the mesh step); without it the norm is
+        that of ``grads``."""
         c = self.cfg
         step = opt_state["step"] + 1
         if c.clip_norm:
-            scale = _clip_scale(global_norm(grads), c.clip_norm)
+            if norm is None:
+                norm = global_norm(grads)
+            scale = _clip_scale(norm, c.clip_norm)
         stepf = step.float()
         bc1 = 1.0 - c.b1 ** stepf
         bc2 = 1.0 - c.b2 ** stepf

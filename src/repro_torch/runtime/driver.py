@@ -6,15 +6,19 @@ launcher runs: batches → train_step → metrics, with
 - **checkpoint/restart**: async checkpoints every N steps, in the
   reference's layout (``models.params.to_jax_state``); on any step
   failure the driver waits for a checkpoint still being written, restores
-  the latest one into the live state and replays from there (the data
-  pipeline is seeded per (step, rank), so replay is exact);
+  the latest one with the bundle's shardings into the live state and
+  replays from there (the data pipeline is seeded per (step, rank), so
+  replay is exact);
+- **elastic rescale**: ``rescale(new_bundle, state)`` places the state's
+  full values on the new bundle's mesh and shardings: losing a pod
+  shrinks (pod, data, model) -> (data, model) without losing progress;
 - **straggler detection**: per-step wall times feed an online P95
   estimate; steps exceeding ``straggler_factor × P95`` are recorded;
 - **fault injection** for tests through ``inject_failure``.
 
-``rescale`` keeps the reference's single-device behaviour (it swaps the
-bundle and counts the rescale); resharding onto a mesh waits for ROADMAP
-A11.
+On a mesh every rank runs the loop on the same batches (the step takes
+its rows); every rank gathers a checkpoint's full values, rank 0 writes
+them, and the ranks meet before they read one.
 """
 from __future__ import annotations
 
@@ -23,10 +27,16 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.distributed.sharding import axis_groups
+from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models.params import from_jax_state, to_jax_state
-from repro_torch.train.steps import StepBundle, load_state
+from repro_torch.train.steps import (
+    StepBundle, full_state, load_state, place_state,
+)
 
 
 @dataclass
@@ -68,23 +78,46 @@ class ElasticTrainer:
     # --- elastic ------------------------------------------------------------
 
     def rescale(self, new_bundle: StepBundle, state) -> Any:
-        if new_bundle.mesh is not None:
-            raise NotImplementedError("rescaling onto a mesh is not ported "
-                                      "to repro_torch yet (ROADMAP A11)")
+        """Re-place ``state`` onto ``new_bundle``'s mesh (e.g. after losing
+        a pod).  Every rank of the old mesh calls it; a rank outside the
+        new mesh gets None."""
         self.bundle = new_bundle
         self._compile()
         self.report.rescales += 1
+        if new_bundle.mesh is None or new_bundle.in_shardings is None:
+            return state
+        state = place_state(new_bundle.cfg, full_state(state),
+                            new_bundle.in_shardings[0])
+        self.report.events.append(("rescale",
+                                   mesh_axis_sizes(new_bundle.mesh)))
         return state
 
     # --- checkpoints ------------------------------------------------------------
 
     def _save(self, step: int, state) -> None:
-        self.ckpt.save(step, to_jax_state(self.bundle.cfg, state))
+        tree = to_jax_state(self.bundle.cfg, state)
+        if self.bundle.mesh is None or dist.get_rank() == 0:
+            self.ckpt.save(step, tree)
+
+    def _sync(self) -> None:
+        """Wait for the checkpoint being written and, on a mesh, for every
+        rank, so that all of them see the same checkpoints."""
+        self.ckpt.wait()
+        mesh = self.bundle.mesh
+        if mesh is not None:
+            token = torch.zeros(1, device=mesh.device_type)
+            for group in axis_groups(mesh, mesh_axis_sizes(mesh)):
+                dist.all_reduce(token, group=group)
 
     def _restore(self, state, template) -> int:
-        """Load the latest checkpoint into ``state`` in place; its step."""
-        step, tree = self.ckpt.restore(template)
-        load_state(state, from_jax_state(self.bundle.cfg, tree))
+        """Load the latest checkpoint into ``state`` in place, placed with
+        the bundle's shardings; its step."""
+        cfg = self.bundle.cfg
+        shardings = None
+        if self.bundle.in_shardings is not None:
+            shardings = to_jax_state(cfg, self.bundle.in_shardings[0])
+        step, tree = self.ckpt.restore(template, shardings)
+        load_state(state, from_jax_state(cfg, tree))
         return step
 
     # --- main loop ------------------------------------------------------------
@@ -94,6 +127,7 @@ class ElasticTrainer:
         template = None
         if self.ckpt is not None:
             template = to_jax_state(self.bundle.cfg, state, device="meta")
+            self._sync()
             if self.ckpt.latest_step() is not None:
                 step = self._restore(state, template)
                 self.log(f"[driver] resumed from checkpoint step {step}")
@@ -112,7 +146,7 @@ class ElasticTrainer:
                 self.report.events.append(("failure", step, repr(e)))
                 if self.ckpt is not None:
                     # a save still being written is the latest checkpoint
-                    self.ckpt.wait()
+                    self._sync()
                 if self.ckpt is None or self.ckpt.latest_step() is None:
                     raise
                 self.log(f"[driver] step {step} failed ({e}); restoring")
@@ -138,5 +172,5 @@ class ElasticTrainer:
                 self._save(step, state)
         if self.ckpt is not None:
             self._save(steps, state)
-            self.ckpt.wait()
+            self._sync()
         return state

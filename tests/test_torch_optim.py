@@ -280,8 +280,9 @@ def test_unported_bundles_raise():
     for kind in ("prefill", "decode"):
         with pytest.raises(NotImplementedError, match="A12"):
             make_step_bundle(cfg, ShapeCfg("s", 16, 2, kind))
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_step_bundle(cfg, ShapeCfg("s", 16, 2, "train"), mesh=object())
+        # a mesh changes nothing: the prefill and decode bundles wait for A12
+        with pytest.raises(NotImplementedError, match="A12"):
+            make_step_bundle(cfg, ShapeCfg("s", 16, 2, kind), mesh=object())
     for fn in (train_input_specs, serve_input_specs):
         with pytest.raises(NotImplementedError, match="A12"):
             fn(cfg, ShapeCfg("s", 16, 2, "train"))

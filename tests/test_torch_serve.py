@@ -110,6 +110,14 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_scan_covers_the_distribution_modules():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in port_files()[:-1]}
+    assert {"distributed/sharding.py", "launch/mesh.py",
+            "optim/compress.py", "train/steps.py",
+            "runtime/driver.py"} <= names
+
+
 def _run_python(code: str) -> str:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -123,6 +131,8 @@ def test_port_runs_without_loading_jax_or_repro():
         "import sys\n"
         "import repro_torch\n"
         "from repro_torch.launch import serve\n"
+        "import repro_torch.distributed.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.optim.compress, repro_torch.runtime\n"
         "eng, sink = serve.run(serve.parse_args(['--device', 'cpu', "
         "'--requests', '1', '--seq', '8', '--gen', '2']))\n"
         "assert sink.n_received == 1\n"
