@@ -70,17 +70,24 @@ Phases, each of which raises on failure:
          granite-moe-3b-a800m at full width and depth with ``ep_shard``,
          6 steps at 4 x 1024 through ``ElasticTrainer`` with the bundle of
          ``make_step_bundle(cfg, shape, mesh)`` on the (1, 1) ("data",
-         "model") mesh, every leaf a DTensor: 64 flash_attention launches
-         per step and the expert-parallel route in every MoE call
-         asserted, wall per step, tokens/s, peak memory, model FLOPs share
-         (active parameters) and one profiled step; (j2) 2 full-width
+         "model") mesh, every leaf a DTensor, through the tensor-parallel
+         code of the attention, embedding and loss (the plan printed and
+         its kinds asserted; on one rank its collectives are identities):
+         64 flash_attention launches per step and the expert-parallel
+         route in every MoE call asserted, wall per step, tokens/s, peak
+         memory, model FLOPs share (active parameters) and one profiled
+         step; (j2) 2 full-width
          layers in float32, one step of the mesh + EP route against the
          mesh-free dense step (loss, every first moment, every routing
          decision) and kernel against plain; (j3) a (1, 1, 1) ("pod",
          "data", "model") mesh with int8 compression: the step's mean and
          error feedback against the plain quantizer; (j4) restore_tree
          onto the mesh's placements, the next loss equal to an unbroken
-         run's; the kernel held and timed at granite's training shape.
+         run's; the kernel held and timed at granite's training shape;
+         (j5) flash_attention at the local heads that tensor parallelism
+         hands it (qwen2-7b on 4 ranks, gemma2-2b on 2), forward and
+         backward through the autograd function against ref.attention,
+         and the kernel timed with its bound and SDPA.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -1109,42 +1116,51 @@ G4_RTOL = 1e-5
 H100_BF16 = PEAK_FLOPS["bfloat16"]
 
 
-def phase_g1(rnd) -> float:
-    """flash_attention as an autograd function on the card: one kernel
-    launch per forward, the forward within TOL of ref.attention, and the
-    grads of q, k, v equal (exactly) to autograd through ref.attention
-    given the same upstream grad."""
+def autograd_case(rnd, B, S, NH, KV, hd, window, cap, dtype) -> float:
+    """flash_attention as an autograd function on the card at one shape:
+    one kernel launch per forward, the forward within TOL of
+    ref.attention, and the grads of q, k, v equal (exactly) to autograd
+    through ref.attention given the same upstream grad.  Returns the
+    forward's max |err|."""
     import torch
     from repro_torch.kernels import flash_attention as fa, ops, ref
+    q, k, v = (rnd(shape, dtype).requires_grad_() for shape in
+               ((B, S, NH, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    g = rnd((B, S, NH, hd), dtype)
+    scale = hd ** -0.5
+    before = fa.launches
+    out = ops.flash_attention(q, k, v, scale, True, window, cap)
+    plain = ref.attention(q, k, v, scale=scale, window=window, softcap=cap)
+    label = f"{(B, S, NH, KV, hd, window, cap)} {dtype}"
+    err = check_close(label, out.detach(), plain.detach(),
+                      TOL[str(dtype).split(".")[1]])
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = torch.autograd.grad(plain, (q, k, v), g)
+    if fa.launches != before + 1:
+        raise AssertionError(f"{label}: {fa.launches - before} kernel "
+                             "launches for one forward")
+    for name, a, b in zip("qkv", got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{label}: d{name} differs from autograd through "
+                f"ref.attention by {(a - b).abs().max().item()}")
+    return err
+
+
+def phase_g1(rnd) -> float:
+    """flash_attention as an autograd function on the card
+    (``autograd_case``) at the kernel cases and gemma2-2b's training
+    shapes, float32 and bf16."""
+    import torch
     cases = FWD_CASES + [(GEMMA_TRAIN["B"], GEMMA_TRAIN["S"],
                           GEMMA_TRAIN["NH"], GEMMA_TRAIN["KV"],
                           GEMMA_TRAIN["hd"], w, GEMMA_TRAIN["cap"])
                          for w in GEMMA_WINDOWS]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for (B, S, NH, KV, hd, window, cap) in cases:
-            q, k, v = (rnd(shape, dtype).requires_grad_() for shape in
-                       ((B, S, NH, hd), (B, S, KV, hd), (B, S, KV, hd)))
-            g = rnd((B, S, NH, hd), dtype)
-            scale = hd ** -0.5
-            before = fa.launches
-            out = ops.flash_attention(q, k, v, scale, True, window, cap)
-            plain = ref.attention(q, k, v, scale=scale, window=window,
-                                  softcap=cap)
-            label = f"[g1] {(B, S, NH, KV, hd, window, cap)} {dtype}"
-            err = check_close(label, out.detach(), plain.detach(),
-                              TOL[str(dtype).split(".")[1]])
-            got = torch.autograd.grad(out, (q, k, v), g)
-            want = torch.autograd.grad(plain, (q, k, v), g)
-            if fa.launches != before + 1:
-                raise AssertionError(f"{label}: {fa.launches - before} "
-                                     "kernel launches for one forward")
-            for name, a, b in zip("qkv", got, want):
-                if not torch.equal(a, b):
-                    raise AssertionError(
-                        f"{label}: d{name} differs from autograd through "
-                        f"ref.attention by {(a - b).abs().max().item()}")
-            if S == GEMMA_TRAIN["S"] and dtype == torch.bfloat16:
+        for case in cases:
+            err = autograd_case(rnd, *case, dtype)
+            if case[1] == GEMMA_TRAIN["S"] and dtype == torch.bfloat16:
                 worst = max(worst, err)
     log(f"[g1] {2 * len(cases)} cases (the kernel cases and gemma2-2b's "
         f"training shapes, float32 and bf16): one launch per forward, "
@@ -1752,6 +1768,15 @@ def phase_i(rnd) -> dict:
 
 # granite's training attention: q (4,1024,24,64), k/v 8 heads, causal
 GRANITE_TRAIN = dict(B=TRAIN_B, S=TRAIN_S, **GRANITE_DIMS)
+# (j5): the local heads that tensor parallelism over "model" hands
+# flash_attention, one rank's share of a training shape: qwen2-7b on 4
+# ranks (28 query heads, 4 KV heads of 128), gemma2-2b on 2 (8 query heads,
+# 4 KV heads of 256, softcap 50, local window 4096 and global)
+# (label, B, S, NH, KV, hd, window, softcap)
+TP_LOCAL = (("qwen2-7b m=4", TRAIN_B, TRAIN_S, 7, 1, 128, 0, 0.0),
+            ("gemma2-2b m=2 window 4096", TRAIN_B, TRAIN_S, 4, 2, 256, 4096,
+             50.0),
+            ("gemma2-2b m=2 window 0", TRAIN_B, TRAIN_S, 4, 2, 256, 0, 50.0))
 # (j2): one step of the mesh + EP route against the mesh-free dense step
 # from the same state and batch, float32 params and compute.  On one rank
 # the EP route computes what the dense route does (the local capacity is
@@ -1881,6 +1906,17 @@ def phase_j1() -> dict:
     torch.cuda.empty_cache()
     cfg = granite_train_cfg()
     bundle = mesh_bundle(cfg)
+    # on one rank the plan splits every kind present (the vocabulary of
+    # 49155 too): the layers run their tensor-parallel code, the
+    # collectives identities
+    want = {"heads", "kv_heads", "vocab"}
+    if bundle.tp.kinds != want:
+        raise AssertionError(f"[j1] tensor-parallel kinds {bundle.tp.kinds},"
+                             f" expected {want}")
+    log(f"[j1] tensor-parallel plan on the (1, 1) mesh: kinds "
+        f"{sorted(bundle.tp.kinds)}; {len(bundle.tp.views)} leaves compute "
+        f"on their 'model' chunk (the whole leaf on one rank): "
+        f"{sorted({k.split('.')[-1] for k in bundle.tp.views})}")
     torch.cuda.reset_peak_memory_stats()
     state = bundle.init_fn(torch.Generator(device=DEV).manual_seed(0))
     leaves = dict(state["params"].named_parameters())
@@ -2135,6 +2171,26 @@ def phase_j4() -> None:
     torch.cuda.empty_cache()
 
 
+def phase_j5(rnd) -> dict:
+    """flash_attention at the local-head shapes of tensor parallelism
+    (``TP_LOCAL``): forward and backward through the autograd function
+    against ref.attention (``autograd_case``), then the kernel timed
+    against its plain version and SDPA, with its bound."""
+    import torch
+    out = {}
+    for label, *case in TP_LOCAL:
+        err = autograd_case(rnd, *case, torch.bfloat16)
+        out[label] = dict(max_abs_err=err, **time_prefill(
+            rnd, f"TP local heads, {label}", *case))
+    log(f"[j5] flash_attention at tensor parallelism's local heads "
+        f"({', '.join(label for label, *_ in TP_LOCAL)}), bf16: one launch "
+        f"per forward, forward within TOL of ref.attention (max |err| "
+        f"{ {k: v['max_abs_err'] for k, v in out.items()} }), grads of q, "
+        f"k, v equal to autograd through ref.attention bit for bit")
+    torch.cuda.empty_cache()
+    return out
+
+
 def tree_items(tree, prefix=""):
     """(path, leaf) of a tree of dicts and lists."""
     if isinstance(tree, dict):
@@ -2160,8 +2216,9 @@ def phase_j(rnd) -> dict:
     dims = [GRANITE_TRAIN[k] for k in ("B", "S", "NH", "KV", "hd")]
     err = fwd_case(rnd, *dims, 0, 0.0, torch.bfloat16)
     timed = time_prefill(rnd, "granite training shape", *dims)
+    tp_local = phase_j5(rnd)
     log(f"[j] phase wall {time.perf_counter() - t0:.1f} s")
-    return dict(main, max_abs_err=err, timed=timed)
+    return dict(main, max_abs_err=err, timed=timed, tp_local=tp_local)
 
 
 def main() -> int:
@@ -2198,6 +2255,7 @@ def main() -> int:
         # training (g3): launches over its 6 steps, and the kernel timed at
         # gemma2-2b's training shape (local layers: window 4096)
         tr = mtr = {"launches": 0}
+        tp_local = {}
         if name == "flash_attention":
             tr = {"launches": train["launches"],
                   "max_abs_err": train["max_abs_err"],
@@ -2207,6 +2265,8 @@ def main() -> int:
             mtr = {"launches": mesh_train["launches"],
                    "max_abs_err": mesh_train["max_abs_err"],
                    **mesh_train["timed"]}
+            # the local heads of tensor parallelism over "model" (j5)
+            tp_local = {"train_tp_local_heads": mesh_train["tp_local"]}
         # serving the MoE (h) and hybrid (i) paths: their launches, and the
         # kernel checked and timed at their shapes (hd=64 G=3; hd=128 G=4)
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -2214,7 +2274,7 @@ def main() -> int:
                         "max_abs_err": errs[name], **t,
                         "bound_share": t["bound_ms"] / t["ms"],
                         "design": design, "train": tr,
-                        "train_granite_moe_mesh": mtr,
+                        "train_granite_moe_mesh": mtr, **tp_local,
                         **{key: {"launches": run["launches"][name],
                                  "max_abs_err": run["errs"][name],
                                  **run["timed"][name]}

@@ -20,6 +20,13 @@ work on a ``DeviceMesh`` and on a ``(names, shape)`` stand-in.  The
 reference's ``shard_map_compat`` has no counterpart: the port's mesh step
 is explicit SPMD already (one process per device, collectives written out,
 ``train/steps.py``).
+
+Tensor parallelism over ``model`` (:func:`tp_plan`) is what XLA derives
+for the reference from the same specs: the dense layers whose heads,
+``d_ff`` or vocabulary split evenly over ``model`` compute on each rank's
+chunk of their leaves (Megatron's column- and row-parallel products).
+The mesh step hands the plan to the model through
+:class:`activation_sharding`, and the layers ask :func:`current_tp`.
 """
 from __future__ import annotations
 
@@ -248,6 +255,101 @@ def view_as(t, placements=None) -> torch.Tensor:
     return t.redistribute(mesh, placements).to_local()
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism over "model"
+# ---------------------------------------------------------------------------
+
+# what splits each kind of leaf over "model": its logical axis
+_TP_AXIS = {"heads": "q_features", "kv_heads": "kv_features", "ffn": "ffn",
+            "vocab": "vocab"}
+
+
+@dataclass(frozen=True)
+class TPPlan:
+    """Which dense layers compute on this rank's ``model`` chunk.
+
+    ``kinds``: of "heads" (``wq``/``bq`` column-parallel by heads, ``wo``
+    row-parallel), "kv_heads" (``wk``/``wv``/``bk``/``bv`` column-parallel;
+    without it a head-parallel layer computes the KV heads its query heads
+    read from the whole leaves), "ffn" (``w_up``/``w_gate`` column-,
+    ``w_down`` row-parallel) and "vocab" (``embedding`` by rows and
+    ``unembed`` by columns).  ``views``: {leaf key: the dim of the leaf
+    split over ``model``} for the leaves of those kinds; every other
+    leaf's compute view is its whole value."""
+
+    size: int                   # ranks on "model" (0: no such axis)
+    kinds: frozenset
+    views: dict
+
+    def placements(self, key: str, names) -> Optional[list]:
+        """The DTensor placements of ``key``'s compute view on a mesh
+        with axes ``names``: its ``model`` chunk, whole over the other
+        axes; None for a whole leaf."""
+        d = self.views.get(key)
+        if d is None:
+            return None
+        return [Shard(d) if a == "model" else Replicate() for a in names]
+
+
+def _tp_kind(cfg, key: str) -> Optional[str]:
+    """The kind of a leaf that tensor parallelism can split (keys as the
+    ``state_dict``'s: ``embed.embedding``, ``groups.<g>.l<j>.mixer.wq``),
+    or None: mamba, xLSTM and MoE leaves keep their whole compute."""
+    parts = key.split(".")
+    if parts[0] == "embed":
+        return "vocab"
+    if parts[0] != "groups":
+        return None
+    layer = cfg.pattern[int(parts[2][1:])]
+    if parts[3] == "mixer" and layer.mixer in ("attn", "attn_local"):
+        return "kv_heads" if parts[4] in ("wk", "wv", "bk", "bv") else "heads"
+    if parts[3] == "ffn" and layer.ffn == "mlp":
+        return "ffn"
+    return None
+
+
+def tp_plan(cfg, sizes: dict, param_axes: dict, specs: dict) -> TPPlan:
+    """The tensor-parallel plan of a model on a mesh with axis ``sizes``,
+    from its leaves' logical axes and resolved specs ({key: P}).  A kind
+    is split when its count (query heads, KV heads, ``d_ff``, vocabulary)
+    divides the ``model`` size and every leaf of the kind is stored split
+    over ``model`` along that axis; "kv_heads" also needs "heads".  A
+    ``model`` axis of one rank splits every kind present (the same code
+    runs, its collectives identities).  Under ``seq_shard`` nothing is
+    split."""
+    m = sizes.get("model", 0)
+    counts = {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+              "ffn": cfg.d_ff, "vocab": cfg.vocab_size}
+    leaves: dict = {}
+    for key, axes in param_axes.items():
+        kind = _tp_kind(cfg, key)
+        if kind is not None:
+            leaves.setdefault(kind, {})[key] = axes.index(_TP_AXIS[kind])
+
+    def stored_on_model(key, d):
+        spec = specs[key]
+        return d < len(spec) and spec[d] == "model"
+
+    kinds = {kind for kind, dims in leaves.items()
+             if m and not cfg.seq_shard and counts[kind] % m == 0
+             and all(stored_on_model(k, d) for k, d in dims.items())}
+    if "heads" not in kinds:
+        kinds.discard("kv_heads")
+    return TPPlan(m, frozenset(kinds),
+                  {k: d for kind in sorted(kinds)
+                   for k, d in leaves[kind].items()})
+
+
+@dataclass(frozen=True)
+class TPRank:
+    """This rank's place on ``model`` while a plan is active: the group
+    (None for one rank, where the collectives are identities) and its rank
+    in the group."""
+
+    group: object
+    rank: int
+
+
 def constrain(x, spec: P):
     """``with_sharding_constraint``: a DTensor is redistributed to ``spec``
     on its own mesh; a plain tensor (no mesh) is returned as it is."""
@@ -267,18 +369,20 @@ def axis_groups(mesh, axes) -> list:
 # Activation constraints (ambient, set by the mesh train step)
 # ---------------------------------------------------------------------------
 
-_ACT_CTX: list = []          # stack of (mesh, rules)
+_ACT_CTX: list = []          # stack of (mesh, rules, tp plan, TPRank)
 
 
 class activation_sharding:
     """Context manager: model code resolves against this mesh while a step
     runs (the MoE layer's expert-parallel and gathered routes read it
-    through :func:`current_mesh`).  No context: single-device code.
-    ``exclude`` drops mesh axes from every rule: the compressed step runs
-    each pod's gradients on their own, as the reference's pod-manual
+    through :func:`current_mesh`, the dense layers the tensor-parallel
+    plan ``tp`` through :func:`current_tp`).  No context: single-device
+    code.  ``exclude`` drops mesh axes from every rule: the compressed step
+    runs each pod's gradients on their own, as the reference's pod-manual
     region does."""
 
-    def __init__(self, mesh, cfg, exclude: tuple = ()):
+    def __init__(self, mesh, cfg, exclude: tuple = (),
+                 tp: Optional[TPPlan] = None):
         if mesh is None:
             self.entry = None
         else:
@@ -286,7 +390,11 @@ class activation_sharding:
             if exclude:
                 rules = {k: tuple(a for a in v if a not in exclude)
                          for k, v in rules.items()}
-            self.entry = (mesh, rules)
+            rank = None
+            if tp is not None and tp.kinds:
+                rank = TPRank(mesh.get_group("model") if tp.size > 1
+                              else None, mesh.get_local_rank("model"))
+            self.entry = (mesh, rules, tp, rank)
 
     def __enter__(self):
         if self.entry is not None:
@@ -310,6 +418,16 @@ def current_rules() -> dict:
     return _ACT_CTX[-1][1] if _ACT_CTX else {}
 
 
+def current_tp(kind: str) -> Optional[TPRank]:
+    """This rank's :class:`TPRank` when the innermost context's plan
+    splits ``kind`` ("heads", "kv_heads", "ffn", "vocab") over ``model``;
+    None otherwise (no context, no plan, or the kind computes whole)."""
+    if not _ACT_CTX:
+        return None
+    _, _, tp, rank = _ACT_CTX[-1]
+    return rank if tp is not None and kind in tp.kinds else None
+
+
 def act_constrain(x, logical_axes: tuple):
     """Pin an activation's placement by logical axis names (or None).
 
@@ -321,7 +439,7 @@ def act_constrain(x, logical_axes: tuple):
     replicated."""
     if not _ACT_CTX or not isinstance(x, DTensor):
         return x
-    mesh, rules = _ACT_CTX[-1]
+    mesh, rules = _ACT_CTX[-1][:2]
     spec = resolve_spec(logical_axes, tuple(x.shape), rules, mesh)
     parts = list(spec) + [None] * (x.ndim - len(spec))
     if all(p is None for p in parts):

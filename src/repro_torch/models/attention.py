@@ -17,6 +17,14 @@ and V ``(B,KV,S,hd)``.  The decode kernel reads them through strided
 (``attention.py:215``, ROADMAP C1), K is permuted ``(0, 3, 1, 2)``.
 Decode updates the caches in place, where the reference returns new
 arrays.
+
+Under the mesh step's tensor-parallel plan ("heads" split over
+``model``) a layer computes this rank's query heads: ``wq``/``bq`` are
+its columns and ``wo`` its rows (f before, g after).  ``wk``/``wv`` are
+its columns too when the KV heads split as well ("kv_heads"); otherwise
+the rank computes, from the whole leaves, the KV heads its query heads
+read (query head h reads KV head h // G), and their gradient is summed
+over the ranks.  ``flash_attention`` then runs on the local heads.
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.collectives import copy_to, reduce_from
+from repro_torch.distributed.sharding import current_tp
 from repro_torch.kernels import ops as kops
 from repro_torch.models.params import dense_init, dtype_of, zeros_init
 
@@ -217,18 +227,8 @@ def attn_apply(params, x, cfg, *, local: bool, positions=None,
     """
     cdt = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    x = x.to(cdt)
-    q = x @ params["wq"].to(cdt)
-    k = x @ params["wk"].to(cdt)
-    v = x @ params["wv"].to(cdt)
-    if cfg.qkv_bias:
-        q = q + params["bq"].to(cdt)
-        k = k + params["bk"].to(cdt)
-        v = v + params["bv"].to(cdt)
-    q = q.reshape(B, S, nh, hd)
-    k = k.reshape(B, S, nkv, hd)
-    v = v.reshape(B, S, nkv, hd)
+    tp = current_tp("heads")
+    q, k, v = _qkv(params, x.to(cdt), cfg, tp)
 
     window = cfg.sliding_window if local else 0
 
@@ -255,8 +255,52 @@ def attn_apply(params, x, cfg, *, local: bool, positions=None,
                                window=window)
         new_cache = cache
 
-    out = out.reshape(B, S, nh * hd).to(cdt)
-    return out @ params["wo"].to(cdt), new_cache
+    out = out.reshape(B, S, -1).to(cdt) @ params["wo"].to(cdt)
+    return (out if tp is None else reduce_from(out, tp.group)), new_cache
+
+
+def _kv_read(rank: int, nh: int, cfg):
+    """The KV heads that query heads ``rank * nh .. (rank + 1) * nh - 1``
+    read: (their columns of ``wk``/``wv``, None when the local heads keep
+    a uniform GQA grouping over them, else the head each local query head
+    reads among them)."""
+    G, hd = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim_
+    lo = rank * nh
+    kv_lo, kv_hi = lo // G, (lo + nh - 1) // G + 1
+    read = [(lo + i) // G - kv_lo for i in range(nh)]
+    n = kv_hi - kv_lo
+    uniform = nh % n == 0 and read == [i // (nh // n) for i in range(nh)]
+    return slice(kv_lo * hd, kv_hi * hd), None if uniform else read
+
+
+def _qkv(params, x, cfg, tp):
+    """q (B,S,NH,hd), k and v (B,S,KV,hd) of x (B,S,D) in the compute
+    dtype: every head, or with ``tp`` this rank's query heads and their
+    KV heads (see the module doc)."""
+    B, S, _ = x.shape
+    cdt, hd = x.dtype, cfg.head_dim_
+    w = {n: params[n] for n in ("wq", "wk", "wv")}
+    if cfg.qkv_bias:
+        w.update({n: params[n] for n in ("bq", "bk", "bv")})
+    read = None
+    if tp is not None:
+        x = copy_to(x, tp.group)
+        if current_tp("kv_heads") is None:
+            cols, read = _kv_read(tp.rank, w["wq"].shape[1] // hd, cfg)
+            for n in ("wk", "wv", "bk", "bv"):
+                if n in w:
+                    w[n] = copy_to(w[n], tp.group)[..., cols]
+
+    def proj(n):
+        y = x @ w["w" + n].to(cdt)
+        if cfg.qkv_bias:
+            y = y + w["b" + n].to(cdt)
+        return y.reshape(B, S, -1, hd)
+
+    q, k, v = proj("q"), proj("k"), proj("v")
+    if read is not None:
+        k, v = k[:, :, read], v[:, :, read]
+    return q, k, v
 
 
 def init_attn_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,

@@ -4,12 +4,20 @@ Counterpart of ``repro/models/layers.py``.  ``init_*`` return specs of
 leaves (:class:`~repro_torch.models.params.Init`); the apply functions
 take a parameter node (module or dict of tensors) and run in the
 config's compute dtype, with float32 normalisation math.
+
+Under the mesh step's tensor-parallel plan (``distributed.sharding``)
+the MLP and the embedding compute on this rank's chunk of their leaves:
+f before a column-parallel product, g after a row-parallel one or after
+the masked lookup of the rank's vocabulary rows
+(``distributed.collectives``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import copy_to, reduce_from
+from repro_torch.distributed.sharding import current_tp
 from repro_torch.models.params import (
     dense_init, dtype_of, embed_init, ones_init,
 )
@@ -55,15 +63,21 @@ def _act(name: str):
             "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
 
 
-def mlp(params, x, cfg):
+def mlp(params, x, cfg, tp=None):
+    """With ``tp`` (a ``TPRank``: the leaves are this rank's ``d_ff``
+    columns of ``w_up``/``w_gate`` and rows of ``w_down``) the output is
+    summed over the ranks."""
     cdt = dtype_of(cfg.compute_dtype)
     x = x.to(cdt)
+    if tp is not None:
+        x = copy_to(x, tp.group)
     up = x @ params["w_up"].to(cdt)
     if cfg.gated_mlp:
         h = _act(cfg.act)(x @ params["w_gate"].to(cdt)) * up
     else:
         h = _act(cfg.act)(up)
-    return h @ params["w_down"].to(cdt)
+    out = h @ params["w_down"].to(cdt)
+    return out if tp is None else reduce_from(out, tp.group)
 
 
 # ---------------------------------------------------------------------------
@@ -82,7 +96,19 @@ def init_embed(cfg) -> dict:
 
 def embed(params, tokens, cfg):
     cdt = dtype_of(cfg.compute_dtype)
-    x = params["embedding"][tokens].to(cdt)
+    table = params["embedding"]
+    tp = current_tp("vocab")
+    if tp is None:
+        x = table[tokens]
+    else:
+        # this rank's vocabulary rows: other ranks' tokens read zeros, and
+        # the sum over the ranks holds each token's row once
+        ids = tokens - tp.rank * table.shape[0]
+        mine = (ids >= 0) & (ids < table.shape[0])
+        x = reduce_from(torch.where(
+            mine[..., None], table[ids.clamp(0, table.shape[0] - 1)], 0),
+            tp.group)
+    x = x.to(cdt)
     if cfg.embed_scale:
         # the scale is rounded to the compute dtype first, as in the
         # reference (jnp.asarray(d ** 0.5, cdt))

@@ -34,16 +34,10 @@ mesh train step, in which each rank holds only its own rows of the batch)
   it: the rows are all-gathered over the batch axes, every rank routes and
   computes all tokens, and keeps its own rows.
 
-The collectives are autograd functions written for these two cases.
-Over ``model`` the ranks compute one and the same loss from replicated
-values, so the gradient of a replicated input to a rank's own share of the
-work is the sum of the ranks' parts, and that of a summed output is the
-cotangent itself (Megatron's f and g); an all-gather's gradient is the
-rank's own columns.  Over the batch axes each rank's loss is its own rows',
-and the losses add: an all-gather of rows takes the gradient back as a
-reduce-scatter sum (``torch.distributed._functional_collectives``'
-autograd all-gather does that, and on ``model`` would count the replicated
-cotangent m times).  A group of one rank skips its collective.
+The collectives are the autograd functions of
+``distributed/collectives.py``: Megatron's f and g over ``model``, and
+the row all-gather (its gradient a reduce-scatter sum) and the mean over
+the batch axes.  A group of one rank skips its collective.
 """
 from __future__ import annotations
 
@@ -53,6 +47,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import (
+    _CopyTo, _GatherCols, _GatherRows, _MeanOver, _ReduceFrom,
+)
 from repro_torch.distributed.sharding import (
     axis_groups, current_mesh, current_rules,
 )
@@ -114,100 +111,6 @@ def route(router, xf, cfg, group=None):
     slot = torch.gather(pos, 1, flat_ids[:, None])[:, 0]
     keep = slot < capacity_of(m, T)
     return probs, gate_vals, expert_ids, slot, keep
-
-
-
-
-# ---------------------------------------------------------------------------
-# Differentiable collectives over one process group (see the module doc)
-# ---------------------------------------------------------------------------
-
-
-def _reduced(g, group):
-    g = g.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(g, group=group)
-    return g
-
-
-def _gathered(x, group, dim):
-    n = dist.get_world_size(group)
-    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-    return out if dim == 0 else torch.cat(out.chunk(n), dim=dim)
-
-
-class _CopyTo(torch.autograd.Function):
-    """Identity; the gradient is summed over the group."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _reduced(g, ctx.group), None
-
-
-class _ReduceFrom(torch.autograd.Function):
-    """Sum over the group; the gradient passes as it is."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        return _reduced(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _GatherCols(torch.autograd.Function):
-    """The ranks' column blocks side by side, in rank order; the gradient
-    is this rank's block."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.lo, ctx.n = dist.get_rank(group) * x.shape[1], x.shape[1]
-        return _gathered(x, group, 1)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g[:, ctx.lo:ctx.lo + ctx.n], None
-
-
-class _GatherRows(torch.autograd.Function):
-    """The ranks' rows stacked in rank order; the gradient of this rank's
-    rows is summed over the group (a reduce-scatter)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group, ctx.rows = group, x.shape[0]
-        return _gathered(x, group, 0)
-
-    @staticmethod
-    def backward(ctx, g):
-        out = torch.empty((ctx.rows,) + tuple(g.shape[1:]), dtype=g.dtype,
-                          device=g.device)
-        dist.reduce_scatter_tensor(out, g.contiguous(), group=ctx.group)
-        return out, None
-
-
-class _MeanOver(torch.autograd.Function):
-    """The mean over the groups' ranks of a scalar that each rank computes
-    from its own rows; the gradient passes as it is (each rank's loss holds
-    the mean once, and the step averages the ranks' gradients)."""
-
-    @staticmethod
-    def forward(ctx, x, groups):
-        out = x.clone()
-        for group in groups:
-            dist.all_reduce(out, group=group)
-        return out / math.prod(dist.get_world_size(g) for g in groups)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
 
 
 # ---------------------------------------------------------------------------

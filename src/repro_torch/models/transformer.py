@@ -11,6 +11,12 @@ every config of ``repro_torch.configs`` builds.  Training: ``trunk`` and
 the sequence-chunked ``loss`` (``ce + 0.01 * moe_aux``), with the
 reference's ``remat`` policies as activation checkpointing around each
 group.  Serving: ``prefill``, ``decode_step`` and ``init_cache``.
+
+Under the mesh step's tensor-parallel plan (``distributed.sharding``)
+the attention, MLP and embedding layers compute on this rank's chunks
+of their leaves, and the loss takes this rank's vocabulary columns of
+the logits into the vocab-parallel cross-entropy
+(``distributed.collectives``).
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ArchConfig, Layer
+from repro_torch.distributed.collectives import copy_to, vocab_parallel_ce
+from repro_torch.distributed.sharding import current_tp
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -110,7 +118,7 @@ def layer_apply(p, x, cfg: ArchConfig, layer: Layer, *, mode: str,
     if layer.ffn != "none":
         h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, zero_centered=_zc(cfg))
         if layer.ffn == "mlp":
-            h = L.mlp(p["ffn"], h, cfg)
+            h = L.mlp(p["ffn"], h, cfg, tp=current_tp("ffn"))
         else:
             h, moe_aux = moe_mod.moe_apply(p["ffn"], h, cfg)
             aux.update(moe_aux)
@@ -239,7 +247,9 @@ class Model(ParamTree):
 
         Cross-entropy over sequence chunks, each recomputed in the
         backward pass, so the full (B, S, vocab) logits never exist at
-        once.  Returns (ce + 0.01 * aux, {"ce", "aux"}).
+        once.  Under a tensor-parallel plan that splits the vocabulary the
+        head holds this rank's columns, and no rank holds whole logits.
+        Returns (ce + 0.01 * aux, {"ce", "aux"}).
         """
         cfg = self.cfg
         x, aux = self.trunk(batch["inputs"])
@@ -247,6 +257,9 @@ class Model(ParamTree):
         B, S = labels.shape
         w = (self.embed.embedding.T if cfg.tie_embeddings
              else self.embed.unembed).to(dtype_of(cfg.compute_dtype))
+        tp = current_tp("vocab")
+        if tp is not None:
+            x = copy_to(x, tp.group)
 
         n_chunks = max(1, S // seq_chunk)
         c = S // n_chunks
@@ -261,6 +274,9 @@ class Model(ParamTree):
                 cap = cfg.final_softcap
                 logits = cap * torch.tanh(logits / cap)
             logits = logits.float()
+            if tp is not None:
+                return torch.sum(vocab_parallel_ce(
+                    logits, l_i, tp.rank * w.shape[1], tp.group))
             lse = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, l_i[..., None])[..., 0]
             return torch.sum(lse - gold)

@@ -25,18 +25,31 @@ jitted GSPMD step:
   over the batch axes (under compression: the pod's microbatch *i* split
   over ``data``), as the reference's ``accumulate`` groups them;
 - it computes on plain tensors, since the CUDA kernels take raw pointers:
-  the full values of the parameters (a leaf's local tensor, not a copy,
-  where every axis that splits it has size 1, as on one card), but under
-  expert parallelism only this rank's experts (``models/moe.py``);
+  each leaf's compute view is its full value (the leaf's local tensor, not
+  a copy, where every axis that splits it has size 1, as on one card),
+  except where the work is split over ``model``: under expert parallelism
+  this rank's experts (``models/moe.py``), and under the tensor-parallel
+  plan (``distributed.sharding.tp_plan``, on ``StepBundle.tp``) this
+  rank's ``model`` chunk of the attention, MLP, embedding and unembedding
+  leaves, gathered over the fsdp axes only.  Those layers run
+  Megatron-style, column- and row-parallel with the collectives of
+  ``distributed/collectives.py``, the loss vocab-parallel; with a
+  ``model`` axis of one rank the same code runs, its collectives
+  identities;
 - the gradients are averaged over the batch axes; under int8 compression
   within the pod first, then across ``pod`` in int8 with error feedback
-  (``optim/compress.py``);
-- each rank keeps its chunk of every gradient, and AdamW updates the local
-  chunks, clipped by the norm of the whole gradient.
+  (``optim/compress.py``), in the reference's layout with one scale per
+  stacked leaf, so the tensor-parallel gradients are gathered over
+  ``model`` first;
+- each rank keeps its chunk of every gradient (a gradient split over
+  ``model`` is cut over the other axes only), and AdamW updates the local
+  chunks, clipped by the norm of the whole gradient (the split
+  gradients' squares summed over ``model``).
 
-Dense tensor parallelism over ``model`` is not done (ROADMAP A11b): the
-ranks along ``model`` repeat the dense layers' work, which changes no
-result.  Not ported yet: the prefill and decode bundles and the input
+Not tensor-parallel (ROADMAP A11c): the mamba and xLSTM leaves, the
+experts of the MoE layer's route without expert parallelism, and
+``seq_shard``; their ranks along ``model`` repeat the work, which changes
+no result.  Not ported yet: the prefill and decode bundles and the input
 specs of the dry run (ROADMAP A12).
 """
 from __future__ import annotations
@@ -51,9 +64,10 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig, ShapeCfg
+from repro_torch.distributed.collectives import gathered
 from repro_torch.distributed.sharding import (
     P, NamedSharding, activation_sharding, axis_groups, batch_spec,
-    distribute, local_chunk, resolve_axes_tree, view_as,
+    distribute, local_chunk, resolve_axes_tree, tp_plan, view_as,
 )
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import Model
@@ -85,6 +99,9 @@ class StepBundle:
     # in_shardings / out_shardings)
     in_shardings: Any = None
     out_shardings: Any = None
+    # on a mesh: the tensor-parallel plan over "model" (a TPPlan: which
+    # leaves compute on their "model" chunk)
+    tp: Any = None
 
 
 def make_opt(cfg: ArchConfig, total_steps: int = 100_000) -> AdamW:
@@ -342,14 +359,22 @@ def _mesh_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
                 "int8 compression with expert parallelism over a model "
                 "axis of more than one rank")
 
+    # --- tensor parallelism: the dense leaves' view is this rank's chunk
+    tp = tp_plan(cfg, sizes, param_axes,
+                 {k: sh.spec for k, sh in state_sh["params"].items()})
+    views = {key: tp.placements(key, sizes) for key in tp.views}
+    views.update(ep_view)
+
     def train_step(state, batch):
+        model_group = (mesh.get_group("model")
+                       if sizes.get("model", 1) > 1 else None)
         params = dict(state["params"].named_parameters())
-        _bind(compute, {key: view_as(p, ep_view.get(key)).detach()
+        _bind(compute, {key: view_as(p, views.get(key)).detach()
                         .requires_grad_() for key, p in params.items()})
         coord = dict(zip(sizes, mesh.get_coordinate()))
         rows = _microbatch_rows(batch["labels"].shape[0], cfg.microbatches,
                                 sizes, coord, compression)
-        with activation_sharding(mesh, cfg, exclude):
+        with activation_sharding(mesh, cfg, exclude, tp):
             grads, loss, _ = _accumulate(compute, batch, rows)
         _bind(compute, shapes)          # drop the views until the next step
         grads = {k: g.contiguous() for k, g in grads.items()}
@@ -361,8 +386,13 @@ def _mesh_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
         if n > 1:
             for t in (*grads.values(), loss):
                 t.div_(n)
+        split = set(views)          # gradients of this rank's model chunk
         if compression:
-            # in the reference's layout: a stacked leaf has one scale
+            # in the reference's layout: a stacked leaf has one scale, so
+            # the tensor-parallel gradients are gathered whole first
+            for key, d in tp.views.items():
+                grads[key] = gathered(grads[key], model_group, d)
+            split = set(ep_view)
             pods = sizes["pod"]
             pod_group = mesh.get_group("pod") if pods > 1 else None
             dev = loss.device
@@ -377,21 +407,21 @@ def _mesh_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
             if pod_group is not None:
                 dist.all_reduce(loss, group=pod_group)
                 loss.div_(pods)
-        # the norm of the whole gradient: an expert leaf's rank holds only
-        # its experts' part
+        # the norm of the whole gradient: a split leaf's rank holds only
+        # its chunk
         sq = torch.stack([torch.sum(torch.square(g.float()))
                           for g in grads.values()])
-        if ep_view and sizes["model"] > 1:
-            is_ep = torch.tensor([k in ep_view for k in grads],
-                                 device=sq.device)
-            part = torch.where(is_ep, sq, 0.0)
-            dist.all_reduce(part, group=mesh.get_group("model"))
-            sq = torch.where(is_ep, part, sq)
+        if split and model_group is not None:
+            is_split = torch.tensor([k in split for k in grads],
+                                    device=sq.device)
+            part = torch.where(is_split, sq, 0.0)
+            dist.all_reduce(part, group=model_group)
+            sq = torch.where(is_split, part, sq)
         norm = torch.sqrt(sum(sq.unbind(0)))
         local = {}
         for key, g in grads.items():
             pl = state_sh["params"][key].placements
-            if key in ep_view:          # split over "model" already
+            if key in split:            # split over "model" already
                 pl = [Replicate() if a == "model" else p
                       for a, p in zip(sizes, pl)]
             local[key] = local_chunk(g, mesh, pl)
@@ -419,4 +449,4 @@ def _mesh_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
 
     return StepBundle(cfg, shape, mesh, train_step, init_fn,
                       in_shardings=(state_sh, batch_sh),
-                      out_shardings=(state_sh, metrics_sh))
+                      out_shardings=(state_sh, metrics_sh), tp=tp)
