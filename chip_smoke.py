@@ -88,6 +88,21 @@ Phases, each of which raises on failure:
          hands it (qwen2-7b on 4 ranks, gemma2-2b on 2), forward and
          backward through the autograd function against ref.attention,
          and the kernel timed with its bound and SDPA.
+  (k)    serving through the prefill and decode step bundles on the (1, 1)
+         ("data", "model") mesh of one NCCL rank: qwen2-7b at full width
+         and depth (28 layers, bf16, random weights from a seed): one
+         prefill at prefill_32k's seq 32768 (batch cut 32 -> 1; 28
+         flash_attention launches asserted), then 8 decode steps at
+         decode_32k's seq 32768, positions 32760-32767 (batch cut 128 ->
+         8; 28 flash_decode launches a step asserted) on a bf16 cache
+         drawn from a seed; logits and caches held bit for bit against
+         ``Model.prefill`` / ``Model.decode_step`` on the same parameters
+         (the decode on a copy of the cache); walls, peak memory, idle
+         shares.  Both kernels checked and timed at those shapes, and
+         flash-decode's partials mode on 4 sequence chunks of one layer's
+         cache, combined, held against whole flash_decode and
+         ``ref.decode_split(..., partials=True)`` (a window, chunks with
+         no valid key) and timed with the bound of the same decode.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -99,6 +114,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import importlib
 import json
 import math
 import re
@@ -279,8 +295,42 @@ def check_close(name, out, want, tol) -> float:
     return err
 
 
+def check_rows(name, out, want, tol) -> float:
+    """``check_close`` with the tolerance scaled to what is compared: an
+    attention output row (the last dim) is held at atol = ``tol`` times
+    its largest |want| where that is below 1, and rtol = ``tol``.  Over
+    tens of thousands of keys the outputs are ~1e-2, below ``tol``
+    itself, so an unscaled atol would pass a kernel that drops keys."""
+    import torch
+    torch.cuda.synchronize()
+    o, w = out.float(), want.float()
+    scale = w.abs().amax(dim=-1, keepdim=True).clamp(max=1.0)
+    err = (o - w).abs()
+    excess = (err - tol * (scale + w.abs())).max().item()
+    if excess > 0:
+        raise AssertionError(f"{name}: kernel vs plain max |err| "
+                             f"{err.max().item()}, {excess} over atol = "
+                             f"{tol} x the row's max |want|, rtol = {tol}")
+    return err.max().item()
+
+
+def expect_rejected(name, out, want, tol) -> None:
+    """The negative control of ``check_rows``: ``out``, a plain result
+    with keys left out, must fail it."""
+    try:
+        check_rows(name, out, want, tol)
+    except AssertionError:
+        log(f"[k] negative control rejected: {name} (max change "
+            f"{(out.float() - want.float()).abs().max().item()})")
+        return
+    raise AssertionError(f"{name}: a result without some of its keys "
+                         f"passes check_rows at {tol}: the gate cannot "
+                         "see a dropped split or tile")
+
+
 def fwd_case(rnd, B, S, NH, KV, hd, window, cap, dtype):
-    from repro_torch.kernels import flash_attention as fa, ref
+    from repro_torch.kernels import ref
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     q, k, v = (rnd((B, S, NH, hd), dtype), rnd((B, S, KV, hd), dtype),
                rnd((B, S, KV, hd), dtype))
     kw = dict(scale=hd ** -0.5, causal=True, window=window, softcap=cap)
@@ -305,11 +355,12 @@ def decode_inputs(rnd, B, S, NH, KV, hd, q_dtype, kv_dtype,
 
 
 def decode_case(q, kc, vc, pos, window, cap, tol, label):
-    from repro_torch.kernels import flash_decode as fd, ref
+    from repro_torch.kernels import ref
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
     kw = dict(scale=q.shape[-1] ** -0.5, window=window, softcap=cap)
     out = fd.flash_decode(q, kc, vc, pos, **kw)
     want = ref.decode(q, kc, vc, pos, **kw)
-    return check_close(f"flash_decode {label}", out, want, tol)
+    return check_rows(f"flash_decode {label}", out, want, tol)
 
 
 def phase_a(rnd) -> dict:
@@ -353,7 +404,8 @@ def phase_a(rnd) -> dict:
 def time_prefill(rnd, label, B, S, NH, KV, hd, window=0, cap=0.0):
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as fa, ref
+    from repro_torch.kernels import ref
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     dt = torch.bfloat16
     q, k, v = rnd((B, S, NH, hd), dt), rnd((B, S, KV, hd), dt), \
         rnd((B, S, KV, hd), dt)
@@ -387,7 +439,8 @@ def time_decode(rnd, label, B, S, NH, KV, hd, pos, kv_dtype,
                 model_layout=True):
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_decode as fd, ref
+    from repro_torch.kernels import ref
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
     q, kc, vc = decode_inputs(rnd, B, S, NH, KV, hd, torch.bfloat16,
                               kv_dtype, model_layout)
     scale = hd ** -0.5
@@ -401,10 +454,10 @@ def time_decode(rnd, label, B, S, NH, KV, hd, pos, kv_dtype,
     vl = vc[:, :pos + 1].transpose(1, 2)
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         ql, kl, vl, scale=scale, enable_gqa=True))
-    err = check_close(f"flash_decode {label}",
-                      fd.flash_decode(q, kc, vc, pos, scale=scale),
-                      ref.decode(q, kc, vc, pos, scale=scale),
-                      TOL["bfloat16"])
+    err = check_rows(f"flash_decode {label}",
+                     fd.flash_decode(q, kc, vc, pos, scale=scale),
+                     ref.decode(q, kc, vc, pos, scale=scale),
+                     TOL["bfloat16"])
     n = min(S, pos + 1)
     kv_name = str(kv_dtype).split(".")[1]
     elt = 2 if kv_name == "bfloat16" else 4
@@ -627,7 +680,8 @@ def serve_full(arch: str, params=None, requests: int = N_REQUESTS,
     after.  Returns (engine, sink runtime, observer, engine wall s,
     launches)."""
     import torch
-    from repro_torch.kernels import flash_attention as fa, flash_decode as fd
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
     from repro_torch.launch import serve
     args = serve.parse_args([
         "--arch", arch, "--full", "--device", DEV,
@@ -705,7 +759,7 @@ def decode_splits(tag, NH, KV, hd) -> dict:
     """The split count of each decode step of a served path (bf16 q, the
     model's float32 (B,KV,hd,S) K cache); all must be 1."""
     import torch
-    from repro_torch.kernels import flash_decode as fd
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
     q = torch.empty((MAIN_B, NH, hd), dtype=torch.bfloat16, device="cuda")
     kc = torch.empty((MAIN_B, KV, hd, MAIN_MAXLEN),
                      device="cuda").permute(0, 3, 1, 2)
@@ -1042,7 +1096,8 @@ def phase_f() -> None:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import flash_attention as fa, flash_decode as fd
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
     t_start = time.perf_counter()
     for name in APP_RTOL:
         fa.launches = 0
@@ -1123,7 +1178,8 @@ def autograd_case(rnd, B, S, NH, KV, hd, window, cap, dtype) -> float:
     through ref.attention given the same upstream grad.  Returns the
     forward's max |err|."""
     import torch
-    from repro_torch.kernels import flash_attention as fa, ops, ref
+    from repro_torch.kernels import ops, ref
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     q, k, v = (rnd(shape, dtype).requires_grad_() for shape in
                ((B, S, NH, hd), (B, S, KV, hd), (B, S, KV, hd)))
     g = rnd((B, S, NH, hd), dtype)
@@ -1190,7 +1246,7 @@ def train_batch(cfg, seed):
 def phase_g2() -> None:
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.models import Model
     cfg = dataclasses.replace(get_config(GEMMA), n_layers=2)
     weights = Model(cfg, device="cuda").init_params(
@@ -1256,7 +1312,7 @@ class observe_train:
     def __enter__(self):
         import torch
         from repro_torch.distributed.sharding import view_as
-        from repro_torch.kernels import flash_attention as fa
+        fa = importlib.import_module("repro_torch.kernels.flash_attention")
         from repro_torch.runtime import ElasticTrainer
         self.saved = ElasticTrainer._compile
         obs = self
@@ -1296,7 +1352,8 @@ def phase_g3() -> dict:
     gemma2-2b --steps 6 --batch 4 --seq 1024`` (full width and depth, on
     the card) in-process, then one profiled step."""
     import torch
-    from repro_torch.kernels import flash_attention as fa, flash_decode as fd
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
     from repro_torch.launch import train
     gc.collect()
     torch.cuda.empty_cache()
@@ -1473,7 +1530,7 @@ def phase_g5() -> None:
     --batch 8 --seq 128`` on the card: 4 metric messages, no attention
     kernel."""
     import torch
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.launch import train
     args = train.parse_args(["--gym", "--arch", "xlstm-125m", "--full",
                              "--steps", "4", "--batch", "8", "--seq", "128",
@@ -1689,7 +1746,8 @@ def phase_i(rnd) -> dict:
     through the served model; both kernels held against their plain
     versions and timed at jamba's shapes (hd=128, G=4)."""
     import torch
-    from repro_torch.kernels import flash_attention as fa, flash_decode as fd
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
     t0 = time.perf_counter()
     eng, sink_rt, obs, wall, launches = serve_full(
         JAMBA, requests=JAMBA_REQUESTS, n_layers=JAMBA_LAYERS)
@@ -1900,7 +1958,8 @@ def phase_j1() -> dict:
     import torch
     from torch.distributed.tensor import DTensor
     from repro_torch.distributed.sharding import view_as
-    from repro_torch.kernels import flash_attention as fa, flash_decode as fd
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
     from repro_torch.runtime import ElasticTrainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -2221,6 +2280,477 @@ def phase_j(rnd) -> dict:
     return dict(main, max_abs_err=err, timed=timed, tp_local=tp_local)
 
 
+# ---------------------------------------------------------------------------
+# (k) qwen2-7b through the prefill and decode step bundles on a mesh
+# ---------------------------------------------------------------------------
+
+QWEN_ARCH = "qwen2-7b"
+K_PREFILL_B = 1         # prefill_32k's batch, cut from 32
+K_DECODE_B = 8          # decode_32k's batch, cut from 128
+K_STEPS = 8             # decode positions 32760 .. 32767
+K_PAIRS = 20            # alternating bundle / Model.decode_step steps
+K_CHUNKS = 4            # the partials mode: sequence chunks of one layer
+# (pos, window) of the partials gate at decode_32k's shapes: every chunk
+# valid; a window that leaves three chunks without a valid key; a
+# position that leaves the last chunk without one
+K_PARTIALS = ((32767, 0), (32767, 4096), (20000, 0))
+# the kernel's float32 partials against ref.decode_split's: the same sums
+# over bf16 values in another order (atol of the leaf's largest entry)
+PARTIALS_RTOL = 2e-5
+
+
+def k_shapes():
+    from repro_torch.configs import SHAPES
+    return (dataclasses.replace(SHAPES["prefill_32k"],
+                                global_batch=K_PREFILL_B),
+            dataclasses.replace(SHAPES["decode_32k"],
+                                global_batch=K_DECODE_B))
+
+
+def tree_equal(a, b) -> list:
+    """Paths of the leaves of two caches (DTensors or tensors) that
+    differ."""
+    from torch.distributed.tensor import DTensor
+    bad = []
+    for (path, x), (_, y) in zip(tree_items(a), tree_items(b)):
+        x = x.to_local() if isinstance(x, DTensor) else x
+        y = y.to_local() if isinstance(y, DTensor) else y
+        if not (x.shape == y.shape and bool((x == y).all())):
+            bad.append(path)
+    return bad
+
+
+def profile_call(tag, fn, wall_s) -> dict:
+    """One call of ``fn`` under torch.profiler: kernels, busy ms and the
+    idle share of the unprofiled wall ``wall_s``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    n = sum(r[1] for r in rows)
+    idle = 1 - busy / (wall_s * 1e3)
+    log(f"{tag} profiled: {n} kernels, device busy {busy:.3f} ms, idle "
+        f"share {idle:.4f} of the unprofiled wall {wall_s * 1e3:.3f} ms")
+    for ms, calls, key in sorted(rows, reverse=True)[:6]:
+        log(f"{tag}   {ms:.3f} ms device, {calls} calls: {key[:90]}")
+    return dict(kernels=n, busy_ms=busy, idle_share=idle)
+
+
+def phase_k1() -> dict:
+    """qwen2-7b at full width and depth (28 layers, bf16) through
+    ``make_step_bundle`` on the (1, 1) ("data", "model") mesh of one NCCL
+    rank: one prefill at prefill_32k's seq (batch 1), then K_STEPS decode
+    steps at decode_32k's seq (batch 8) on a cache drawn from a seed, each
+    held bit for bit against ``Model.prefill`` / ``Model.decode_step`` on
+    the same parameters (the decode on a copy of the cache)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import make_step_bundle
+    from repro_torch.train.steps import place_params
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(QWEN_ARCH)
+    pshape, dshape = k_shapes()
+    mesh = make_mesh((1, 1), ("data", "model"), DEV)
+    pb = make_step_bundle(cfg, pshape, mesh)
+    db = make_step_bundle(cfg, dshape, mesh)
+    want = {"ffn", "heads", "kv_heads", "vocab"}
+    if pb.tp.kinds != want or db.tp.kinds != want:
+        raise AssertionError(f"[k] tensor-parallel kinds {pb.tp.kinds} / "
+                             f"{db.tp.kinds}, expected {want}")
+    t0 = time.perf_counter()
+    model = Model(cfg, device=DEV).init_params(
+        torch.Generator(device=DEV).manual_seed(0))
+    params = place_params(cfg, {k: p.detach() for k, p in
+                                model.named_parameters()},
+                          pb.in_shardings[0])
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    log(f"[k] {QWEN_ARCH} full width and depth ({cfg.n_layers} layers, "
+        f"{n_params} bf16 params, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) drawn and placed "
+        f"on the (1, 1) mesh in {time.perf_counter() - t0:.1f} s; plan "
+        f"{sorted(pb.tp.kinds)}")
+    g = torch.Generator(device=DEV).manual_seed(1)
+
+    # --- prefill: prefill_32k's seq 32768 at batch 1 ---------------------
+    S = pshape.seq_len
+    toks = torch.randint(0, cfg.vocab_size, (K_PREFILL_B, S), generator=g,
+                         device=DEV)
+    # the first call at these shapes pays the GEMMs' and the allocator's
+    # set-up: timed apart, and the second call is the one measured
+    t0 = time.perf_counter()
+    pb.step_fn(params, toks)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fd.launches = 0
+    fd.partials_launches = fd.combine_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pb.step_fn(params, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    p_launches = {"flash_attention": fa.launches,
+                  "flash_decode": fd.launches,
+                  "partials": fd.partials_launches,
+                  "combine": fd.combine_launches}
+    p_peak = torch.cuda.max_memory_allocated() / 2**30
+    if p_launches != {"flash_attention": cfg.n_layers, "flash_decode": 0,
+                      "partials": 0, "combine": 0}:
+        raise AssertionError(f"[k] prefill launches {p_launches}, expected "
+                             f"{cfg.n_layers} flash_attention")
+    if tuple(logits.shape) != (K_PREFILL_B, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits.to_local()).all()):
+        raise AssertionError(f"[k] prefill logits {tuple(logits.shape)}")
+    t0 = time.perf_counter()
+    want_logits, want_cache = model.prefill(toks)
+    torch.cuda.synchronize()
+    plain_prefill_s = time.perf_counter() - t0
+    if not torch.equal(logits.to_local(), want_logits):
+        raise AssertionError("[k] the prefill bundle's logits differ from "
+                             "Model.prefill's")
+    bad = tree_equal(cache, want_cache)
+    if bad:
+        raise AssertionError(f"[k] prefill cache leaves differ: {bad[:4]}")
+    n_leaves = len(list(tree_items(cache)))
+    prof_p = profile_call("[k] prefill", lambda: pb.step_fn(params, toks),
+                          prefill_s)
+    log(f"[k] prefill q ({K_PREFILL_B}, {S}) through the bundle: "
+        f"{prefill_s:.3f} s (its first call {first_s:.3f} s; Model.prefill "
+        f"{plain_prefill_s:.3f} s), "
+        f"launches {p_launches}, peak {p_peak:.3f} GiB; logits and "
+        f"{n_leaves} cache leaves equal Model.prefill's bit for bit")
+    del logits, cache, want_logits, want_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- decode: decode_32k's seq 32768 at batch 8, a cache from a seed --
+    B, S = dshape.global_batch, dshape.seq_len
+    full = model.init_cache(B, S, torch.bfloat16)
+    for _, leaf in tree_items(full):
+        for b in range(B):      # one row at a time: no float32 copy whole
+            leaf[b].copy_(torch.randn(leaf[b].shape, generator=g,
+                                      device=DEV))
+    plain = [{n: {"mixer": {k: t.clone() for k, t in lc["mixer"].items()}}
+              for n, lc in gcache.items()} for gcache in full]
+    cache = [{n: {"mixer": {k: distribute(t, db.in_shardings[1][i][n][
+        "mixer"][k]) for k, t in lc["mixer"].items()}}
+        for n, lc in gcache.items()} for i, gcache in enumerate(full)]
+    cache_gb = sum(t.numel() * t.element_size()
+                   for _, t in tree_items(full)) / 1e9
+    log(f"[k] decode cache ({B}, {cfg.n_kv_heads}, {cfg.head_dim_}, {S}) "
+        f"bf16 x 2 x {cfg.n_layers} layers drawn from a seed: "
+        f"{cache_gb:.2f} GB, and a copy for Model.decode_step; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    torch.cuda.reset_peak_memory_stats()
+    walls, plain_walls, launches = [], [], []
+    first = S - K_STEPS
+    for pos in range(first, S):
+        tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g,
+                            device=DEV)
+        fd.launches = fa.launches = 0
+        fd.partials_launches = fd.combine_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = db.step_fn(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append((fd.launches, fa.launches, fd.partials_launches,
+                         fd.combine_launches))
+        t0 = time.perf_counter()
+        want_logits, plain = model.decode_step(plain, tok, pos)
+        torch.cuda.synchronize()
+        plain_walls.append(time.perf_counter() - t0)
+        if not torch.equal(logits.to_local(), want_logits):
+            raise AssertionError(f"[k] decode logits at pos {pos} differ "
+                                 "from Model.decode_step's")
+        for (path, a), (_, b) in zip(tree_items(cache), tree_items(plain)):
+            a = a.to_local()
+            at = (..., pos) if path.endswith("/k") else (..., pos, slice(None))
+            if not torch.equal(a[at], b[at]):
+                raise AssertionError(f"[k] cache {path} at pos {pos} "
+                                     "differs from Model.decode_step's")
+    d_peak = torch.cuda.max_memory_allocated() / 2**30
+    # the mesh path's host cost: K_PAIRS pairs of one bundle step and one
+    # Model.decode_step at the last position, each pair in the other
+    # order than the one before, on the same device work
+    runs = {"bundle": lambda: db.step_fn(params, cache, tok, S - 1),
+            "plain": lambda: model.decode_step(plain, tok, S - 1)}
+    pair_walls = {"bundle": [], "plain": []}
+    for i in range(K_PAIRS):
+        for name in (("bundle", "plain") if i % 2 else ("plain", "bundle")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            pair_walls[name].append(time.perf_counter() - t0)
+    diffs = [a - b for a, b in zip(*pair_walls.values())]
+    q1, mid, q3 = statistics.quantiles(diffs, n=4)
+    log(f"[k] mesh path's host cost, {K_PAIRS} alternating pairs at pos "
+        f"{S - 1}: bundle step median "
+        f"{statistics.median(pair_walls['bundle'])} s, Model.decode_step "
+        f"{statistics.median(pair_walls['plain'])} s; "
+        f"bundle minus plain per pair: median {mid} s, quartiles {q1} / "
+        f"{q3} s; bundle faster in "
+        f"{sum(d < 0 for d in diffs)} of {K_PAIRS} pairs")
+    if launches != [(cfg.n_layers, 0, 0, 0)] * K_STEPS:
+        raise AssertionError(f"[k] decode launches per step (flash_decode, "
+                             f"flash_attention, partials, combine) "
+                             f"{launches}, expected ({cfg.n_layers}, 0, 0, "
+                             "0)")
+    if not bool(torch.isfinite(logits.to_local()).all()):
+        raise AssertionError("[k] non-finite decode logits")
+    step_s = statistics.median(walls[1:])
+    prof_d = profile_call("[k] decode step", lambda: db.step_fn(
+        params, cache, tok, S - 1), step_s)
+    n_split = fd.plan(torch.empty((B, cfg.n_heads, cfg.head_dim_),
+                                  dtype=torch.bfloat16, device=DEV),
+                      cache[0]["l0"]["mixer"]["k"].to_local().permute(
+                          0, 3, 1, 2), S - 1)
+    log(f"[k] {gpu_line()}: {K_STEPS} decode steps at pos {first}-{S - 1}, "
+        f"batch {B}, through the bundle: wall per step {walls} s (median of "
+        f"steps 2-{K_STEPS} {step_s} s; Model.decode_step "
+        f"{statistics.median(plain_walls[1:])} s); flash_decode launches "
+        f"per step {[n[0] for n in launches]} (n_split {n_split}); peak "
+        f"{d_peak:.3f} GiB; logits and every written cache position equal "
+        f"Model.decode_step's bit for bit")
+    del cache, plain, full, logits, want_logits, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(prefill_s=prefill_s, first_prefill_s=first_s,
+                plain_prefill_s=plain_prefill_s,
+                prefill_peak_gib=p_peak, prefill_idle=prof_p["idle_share"],
+                step_s=step_s, walls=walls, decode_peak_gib=d_peak,
+                decode_idle=prof_d["idle_share"],
+                launches={"flash_attention": p_launches["flash_attention"],
+                          "flash_decode": sum(n[0] for n in launches),
+                          "partials": sum(n[2] for n in launches)})
+
+
+def plain_prefill_chunked(q, k, v, scale, chunk: int = 1024, drop=None):
+    """The model's plain causal attention (``_attend_chunk``'s arithmetic:
+    float32 scores of ``chunk`` query rows against every key) on the
+    card: ``ref.attention``'s whole score matrix does not fit at 32768.
+    ``drop``, keys [lo, hi) left out: the negative control's result."""
+    import torch
+    from repro_torch.kernels import ref
+    B, S, NH, hd = q.shape
+    KV = k.shape[2]
+    kf, vf = k.float(), v.float()
+    kpos = torch.arange(S, device=q.device)
+    outs = []
+    for i in range(0, S, chunk):
+        qg = q[:, i:i + chunk].reshape(B, -1, KV, NH // KV, hd).float()
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg * scale, kf)
+        qpos = i + torch.arange(qg.shape[1], device=q.device)
+        keep = qpos[:, None] >= kpos[None, :]
+        if drop is not None:
+            keep = keep & ((kpos < drop[0]) | (kpos >= drop[1]))[None, :]
+        s = torch.where(keep, s, ref.NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bkgqs,bskh->bqkgh", p, vf).reshape(
+            B, -1, NH, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def time_bundle_prefill(rnd) -> dict:
+    """flash_attention at the bundle's prefill shape, q (1,32768,28,128)
+    against 4 KV heads, causal: against the chunked plain attention and
+    SDPA, with its bound."""
+    import torch
+    import torch.nn.functional as F
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    B, S = K_PREFILL_B, k_shapes()[0].seq_len
+    NH, KV, hd = QWEN["NH"], QWEN["KV"], QWEN["hd"]
+    dt = torch.bfloat16
+    q, k, v = rnd((B, S, NH, hd), dt), rnd((B, S, KV, hd), dt), \
+        rnd((B, S, KV, hd), dt)
+    scale = hd ** -0.5
+    run = lambda: fa.flash_attention_fwd(q, k, v, scale=scale)  # noqa
+    want = plain_prefill_chunked(q, k, v, scale)
+    err = check_rows("flash_attention prefill_32k", run(), want,
+                     TOL["bfloat16"])
+    # one 64-key tile of the kernel's left out, for every later row
+    expect_rejected("flash_attention prefill_32k without keys 16384-16447",
+                    plain_prefill_chunked(q, k, v, scale,
+                                          drop=(16384, 16448)),
+                    want, TOL["bfloat16"])
+    del want
+    ms = time_ms(run, calls=3)
+    plain = time_ms(lambda: plain_prefill_chunked(q, k, v, scale), calls=1,
+                    reps=3)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True), calls=3)
+    flops = 4.0 * hd * attn_pairs(S, S, 0) * B * NH
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound(flops, nbytes, "bfloat16")
+    log(f"[k] flash_attention q{(B, S, NH, hd)} kv{(B, S, KV, hd)} bf16 "
+        f"causal: kernel {ms} ms, plain (chunked) {plain} ms, sdpa {lib} ms,"
+        f" bound {b_ms} ms by {b_by} (share {b_ms / ms:.4f}); max |err| vs "
+        f"plain {err}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def k_partials(q, kc, vc, pos, window, scale):
+    """The partials entry on each of K_CHUNKS sequence chunks of the
+    caches, combined by the combine entry: (o, [each chunk's (acc, m,
+    l)])."""
+    import torch
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    c = kc.shape[1] // K_CHUNKS
+    parts = [fd.partials(q, kc[:, r * c:(r + 1) * c], vc[:, r * c:(r + 1) * c],
+                         pos, offset=r * c, scale=scale, window=window)
+             for r in range(K_CHUNKS)]
+    acc, m, l = (torch.cat([p[i] for p in parts]) for i in range(3))
+    return fd.combine(acc, m, l, q.dtype), parts
+
+
+def phase_k2(rnd) -> dict:
+    """The partials mode at decode_32k's shapes (batch 8): one layer's
+    bf16 cache in K_CHUNKS sequence chunks in one process, each chunk
+    through the partials entry and the partials combined, held against
+    whole flash_decode and the plain version (``ref.decode_split(...,
+    partials=True)`` per chunk, merged by ``ref.combine``), with a window
+    and chunks without a valid key; then timed beside whole flash_decode,
+    with the bound of the same decode."""
+    import torch
+    from repro_torch.kernels import ref
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    B, S = K_DECODE_B, k_shapes()[1].seq_len
+    NH, KV, hd = QWEN["NH"], QWEN["KV"], QWEN["hd"]
+    q, kc, vc = decode_inputs(rnd, B, S, NH, KV, hd, torch.bfloat16,
+                              torch.bfloat16)
+    scale = hd ** -0.5
+    c = S // K_CHUNKS
+    errs, empty = {}, {}
+    fd.partials_launches = fd.combine_launches = 0
+    for pos, window in K_PARTIALS:
+        out, parts = k_partials(q, kc, vc, pos, window, scale)
+        n = parts[0][0].shape[0]
+        want_parts = []
+        for r in range(K_CHUNKS):
+            _, wp = ref.decode_split(q, kc[:, r * c:(r + 1) * c],
+                                     vc[:, r * c:(r + 1) * c], pos,
+                                     n_split=n, scale=scale, window=window,
+                                     partials=True, offset=r * c)
+            want_parts.append(wp)
+            for name, got, want in zip(("acc", "m", "l"), parts[r], wp):
+                tol = PARTIALS_RTOL * max(float(want.abs().max()), 1.0)
+                check_close(f"flash_decode partials chunk {r} {name} pos "
+                            f"{pos} window {window}", got, want, tol)
+        nothing = [r for r in range(K_CHUNKS)
+                   if ref.chunk_range(pos, window, r * c, c) == (0, 0)]
+        for r in nothing:
+            if not (bool((parts[r][1] == ref.NEG_INF).all())
+                    and bool((parts[r][2] == 0).all())):
+                raise AssertionError(f"[k] chunk {r} has no valid key at "
+                                     f"pos {pos} window {window}, but its "
+                                     "partials are not m = NEG_INF, l = 0")
+        acc, m, l = (torch.cat([p[i] for p in want_parts]) for i in range(3))
+        plain = ref.combine(acc, m, l, q.dtype)
+        whole = fd.flash_decode(q, kc, vc, pos, scale=scale, window=window)
+        label = f"pos {pos} window {window}"
+        errs[label] = max(
+            check_rows(f"partials + combine vs plain, {label}", out, plain,
+                       TOL["bfloat16"]),
+            check_rows(f"partials + combine vs whole flash_decode, "
+                       f"{label}", out, whole, TOL["bfloat16"]),
+            check_rows(f"partials + combine vs ref.decode, {label}", out,
+                       ref.decode(q, kc, vc, pos, scale=scale,
+                                  window=window), TOL["bfloat16"]))
+        # the negative control: the plain merge without the split of
+        # largest weight (the kernel dropping one of its splits)
+        keep = torch.ones(m.shape[0], dtype=torch.bool, device=m.device)
+        keep[int(l.sum(dim=(1, 2)).argmax())] = False
+        expect_rejected(f"the merge without one of its {m.shape[0]} "
+                        f"splits, {label}", ref.combine(
+                            acc[keep], m[keep], l[keep], q.dtype), plain,
+                        TOL["bfloat16"])
+        empty[label] = nothing
+    gate_launches = (fd.partials_launches, fd.combine_launches)
+    if gate_launches != (K_CHUNKS * len(K_PARTIALS), len(K_PARTIALS)):
+        raise AssertionError(f"[k] partials / combine launches "
+                             f"{gate_launches}")
+    pos = S - 1
+    ms = time_ms(lambda: k_partials(q, kc, vc, pos, 0, scale))
+    whole_ms = time_ms(lambda: fd.flash_decode(q, kc, vc, pos, scale=scale))
+
+    def plain_run():
+        ps = [ref.decode_split(q, kc[:, r * c:(r + 1) * c],
+                               vc[:, r * c:(r + 1) * c], pos, n_split=1,
+                               scale=scale, partials=True, offset=r * c)[1]
+              for r in range(K_CHUNKS)]
+        return ref.combine(*(torch.cat([p[i] for p in ps]) for i in
+                             range(3)), q.dtype)
+
+    plain_ms = time_ms(plain_run, calls=5, reps=3)
+    # the same decode as one SDPA call (as time_decode prepares it)
+    ql, kl, vl = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        ql, kl, vl, scale=scale, enable_gqa=True))
+    flops = 4.0 * hd * S * B * NH
+    nbytes = 2 * 2 * B * NH * hd + 2 * B * KV * S * hd * 2
+    b_ms, b_by = bound(flops, nbytes, "bfloat16")
+    n = fd.partials(q, kc[:, :c], vc[:, :c], pos, offset=0,
+                    scale=scale)[0].shape[0]
+    log(f"[k] partials mode q{(B, NH, hd)} bf16, bf16 cache{(B, S, KV, hd)} "
+        f"in {K_CHUNKS} chunks of {c} ({n} splits each, {K_CHUNKS * n} "
+        f"partials combined): {ms} ms for the {K_CHUNKS} partials launches "
+        f"and the combine, whole flash_decode {whole_ms} ms, plain "
+        f"{plain_ms} ms, sdpa {lib} ms, bound {b_ms} ms by {b_by} (share "
+        f"{b_ms / ms:.4f}); "
+        f"max |err| {errs}; chunks without a valid key {empty}; gate "
+        f"launches (partials, combine) {gate_launches}")
+    del q, kc, vc
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                whole_ms=whole_ms, gate_launches=list(gate_launches),
+                splits_per_chunk=n)
+
+
+def phase_k(rnd) -> dict:
+    """The slice's path: qwen2-7b served through the prefill and decode
+    bundles on a process group of one NCCL rank; both kernels at the
+    bundles' shapes; the partials mode of a sequence-split cache."""
+    import torch
+    t0 = time.perf_counter()
+    with nccl_rank():
+        main = phase_k1()
+    prefill = time_bundle_prefill(rnd)
+    decode = time_decode(rnd, "serve bundle decode_32k", K_DECODE_B,
+                         k_shapes()[1].seq_len, **QWEN,
+                         pos=k_shapes()[1].seq_len - 1,
+                         kv_dtype=torch.bfloat16)
+    decode.pop("n_split")
+    B, S = K_DECODE_B, k_shapes()[1].seq_len
+    q, kc, vc = decode_inputs(rnd, B, S, **QWEN, q_dtype=torch.bfloat16,
+                              kv_dtype=torch.bfloat16)
+    decode["max_abs_err"] = decode_case(q, kc, vc, S - 1, 0, 0.0,
+                                        TOL["bfloat16"], "decode_32k")
+    del q, kc, vc
+    partials = phase_k2(rnd)
+    log(f"[k] phase wall {time.perf_counter() - t0:.1f} s")
+    return dict(main, prefill=prefill, decode=decode, partials=partials)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2244,6 +2774,7 @@ def main() -> int:
     granite = phase_h(rnd)
     jamba = phase_i(rnd)
     mesh_train = phase_j(rnd)
+    serve_bundle = phase_k(rnd)
     kernels = []
     for name, src, replaces, design in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -2267,6 +2798,18 @@ def main() -> int:
                    **mesh_train["timed"]}
             # the local heads of tensor parallelism over "model" (j5)
             tp_local = {"train_tp_local_heads": mesh_train["tp_local"]}
+        # serving through the prefill and decode bundles (k): launches of
+        # one prefill at 32768 and of the decode steps at 32760-32767, the
+        # kernel at those shapes; the partials mode of a sequence-split
+        # cache (not on one card's path: launched by its gate only)
+        sb = {"serve_bundle": {
+            "launches": serve_bundle["launches"][name],
+            **serve_bundle["prefill" if name == "flash_attention"
+                           else "decode"]}}
+        if name == "flash_decode":
+            sb["serve_bundle_partials"] = {
+                "launches": serve_bundle["launches"]["partials"],
+                **serve_bundle["partials"]}
         # serving the MoE (h) and hybrid (i) paths: their launches, and the
         # kernel checked and timed at their shapes (hd=64 G=3; hd=128 G=4)
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -2274,7 +2817,7 @@ def main() -> int:
                         "max_abs_err": errs[name], **t,
                         "bound_share": t["bound_ms"] / t["ms"],
                         "design": design, "train": tr,
-                        "train_granite_moe_mesh": mtr, **tp_local,
+                        "train_granite_moe_mesh": mtr, **tp_local, **sb,
                         **{key: {"launches": run["launches"][name],
                                  "max_abs_err": run["errs"][name],
                                  **run["timed"][name]}

@@ -57,7 +57,9 @@ from repro_torch.kernels import netcalc
 
 # The reference's TPU chip/interconnect constants and its
 # ``collective_time_s`` roofline helper are not copied: they serve the
-# roofline analyzer, whose port owns its own H100 figures (ROADMAP A12).
+# roofline analysis (ROADMAP A12a) and the dry run that prices the step
+# bundles (A12c), neither of which is ported yet.  The bundles themselves,
+# train, prefill and decode, are (``train/steps.py``).
 
 
 @dataclass

@@ -19,6 +19,12 @@
 //     launches; otherwise it writes float32 partials (acc, m, l) and a
 //     small combine kernel merges them by log-sum-exp, one block per
 //     (batch, head).
+//   - Partials mode (flash_decode_partials).  A cache split by sequence
+//     over several ranks: each rank runs the split kernel on its chunk
+//     and keeps the partials, also with one split; the ranks' partials
+//     are gathered and merged by the same combine kernel
+//     (flash_decode_combine), which takes any number of them.  A chunk
+//     with no valid key writes m = NEG_INF, l = 0.
 //   - Loads in flight.  K/V tiles go through a 2-stage ring in shared
 //     memory filled by 16-byte cp.async, so the next tile's loads overlap
 //     this tile's math; the cache keeps its own element type (float32 or
@@ -52,6 +58,7 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int SPLIT_KEYS = 128;  // split unit (ref.SPLIT_KEYS); a multiple of every BK
 constexpr int MAX_SPLIT = 64;    // (flash_decode.MAX_SPLIT)
+constexpr int MAX_PARTS = 1024;  // partials one combine merges (flash_decode.MAX_PARTS)
 
 template <int HD, typename T>
 struct Geo {
@@ -206,7 +213,7 @@ fd_split_kernel(const void* __restrict__ q, int q_bf16,
                 int G, int lo, int hi, long long k_sb, long long k_ss,
                 long long k_sh, long long k_sd, long long v_sb,
                 long long v_ss, long long v_sh, long long v_sd, int kvec,
-                int vvec, float scale, float softcap) {
+                int vvec, float scale, float softcap, int to_part) {
   using Gm = Geo<HD, T>;
   constexpr int BK = Gm::BK, LDH = Gm::LDH, E = Gm::E, LT = Gm::LT;
   constexpr int DT = Gm::DT, GT = Gm::GT, NCL = Gm::NCL, NCV = Gm::NCV;
@@ -375,7 +382,7 @@ fd_split_kernel(const void* __restrict__ q, int q_bf16,
   }
   __syncthreads();  // (a block with no keys: the initial state is set)
 
-  if (n_split == 1) {  // the only split: write o in q's type
+  if (n_split == 1 && !to_part) {  // the only split: write o in q's type
     for (int i = tid; i < G * HD; i += THREADS) {
       const float x = acc[i] / fmaxf(ls[i / HD], 1e-30f);
       if (q_bf16)
@@ -395,25 +402,26 @@ fd_split_kernel(const void* __restrict__ q, int q_bf16,
   }
 }
 
-// Merge the n_split partials of one (batch, head) row by log-sum-exp.  A
-// split whose keys were all masked, or that got no keys, has m = NEG_INF
-// (finite, never -inf) and l = 0: M = max m_i is finite, so exp(m_i - M)
-// is never NaN and such a split weighs 0 next to any split with keys.
+// Merge the n_split partials of one (batch, head) row by log-sum-exp:
+// acc (n_split, BNH, hd), pm and pl (n_split, BNH).  A split whose keys
+// were all masked, or that got no keys, has m = NEG_INF (finite, never
+// -inf) and l = 0: M = max m_i is finite, so exp(m_i - M) is never NaN
+// and such a split weighs 0 next to any split with keys.
 __global__ void __launch_bounds__(THREADS)
-fd_combine_kernel(const float* __restrict__ part, void* __restrict__ o,
+fd_combine_kernel(const float* __restrict__ acc, const float* __restrict__ pm,
+                  const float* __restrict__ pl, void* __restrict__ o,
                   int q_bf16, int n_split, int BNH, int hd) {
-  __shared__ float w[MAX_SPLIT];
+  __shared__ float w[MAX_PARTS];
   __shared__ float inv_l;
   const long long row = blockIdx.x;
-  const float* pm = part + (long long)n_split * BNH * hd;
-  const float* pl = pm + (long long)n_split * BNH;
   if (threadIdx.x == 0) {
     float M = NEG_INF;
-    for (int i = 0; i < n_split; ++i) M = fmaxf(M, pm[i * BNH + row]);
+    for (int i = 0; i < n_split; ++i)
+      M = fmaxf(M, pm[(long long)i * BNH + row]);
     float L = 0.f;
     for (int i = 0; i < n_split; ++i) {
-      w[i] = expf(pm[i * BNH + row] - M);
-      L += w[i] * pl[i * BNH + row];
+      w[i] = expf(pm[(long long)i * BNH + row] - M);
+      L += w[i] * pl[(long long)i * BNH + row];
     }
     inv_l = 1.f / fmaxf(L, 1e-30f);
   }
@@ -421,7 +429,7 @@ fd_combine_kernel(const float* __restrict__ part, void* __restrict__ o,
   for (int d = threadIdx.x; d < hd; d += THREADS) {
     float a = 0.f;
     for (int i = 0; i < n_split; ++i)
-      a = fmaf(w[i], part[((long long)i * BNH + row) * hd + d], a);
+      a = fmaf(w[i], acc[((long long)i * BNH + row) * hd + d], a);
     if (q_bf16)
       static_cast<bf16*>(o)[row * hd + d] = from_f<bf16>(a * inv_l);
     else
@@ -437,7 +445,16 @@ struct Args {
   long long ks[4], vs[4];  // (batch, seq, head, head_dim) strides
   float scale, softcap;
   cudaStream_t stream;
+  int to_part;  // keep the partials (no combine), also with one split
 };
+
+cudaError_t launch_combine(const float* acc, const float* pm,
+                           const float* pl, void* o, int q_bf16, int n,
+                           int BNH, int hd, cudaStream_t stream) {
+  fd_combine_kernel<<<BNH, THREADS, 0, stream>>>(acc, pm, pl, o, q_bf16, n,
+                                                 BNH, hd);
+  return cudaGetLastError();
+}
 
 // With occ != nullptr: report the block's shared memory and how many
 // blocks fit on one SM; otherwise launch.
@@ -458,12 +475,13 @@ cudaError_t run(const Args& a, int* occ, long long* smem_out) {
       a.q, a.q_bf16, static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       a.o, a.part, a.B, a.NH, G, a.lo, a.hi, a.ks[0], a.ks[1], a.ks[2],
       a.ks[3], a.vs[0], a.vs[1], a.vs[2], a.vs[3], a.kvec, a.vvec, a.scale,
-      a.softcap);
+      a.softcap, a.to_part);
   e = cudaGetLastError();
-  if (e != cudaSuccess || a.n_split == 1) return e;
-  fd_combine_kernel<<<a.B * a.NH, THREADS, 0, a.stream>>>(
-      a.part, a.o, a.q_bf16, a.n_split, a.B * a.NH, HD);
-  return cudaGetLastError();
+  if (e != cudaSuccess || a.n_split == 1 || a.to_part) return e;
+  const long long BNH = (long long)a.B * a.NH;
+  const float* pm = a.part + a.n_split * BNH * HD;
+  return launch_combine(a.part, pm, pm + a.n_split * BNH, a.o, a.q_bf16,
+                        a.n_split, (int)BNH, HD, a.stream);
 }
 
 template <typename T>
@@ -531,8 +549,46 @@ int flash_decode(const void* q, const void* k, const void* v, void* o,
   Args a{q, k, v, o, part, q_dtype == repro::kBFloat16, B, NH, KV, lo, hi,
          n_split, kvec, vvec, {k_sb, k_ss, k_sh, k_sd},
          {v_sb, v_ss, v_sh, v_sd}, scale, softcap,
-         static_cast<cudaStream_t>(stream)};
+         static_cast<cudaStream_t>(stream), 0};
   return dispatch_kv(kv_dtype, hd, kseq, a);
+}
+
+// Partials mode: the split kernel over keys [lo, hi) of a cache chunk (the
+// arguments of flash_decode, without o), writing float32 partials into
+// part, n_split * B * NH * (hd + 2): acc (n_split, B, NH, hd), then m and
+// l (n_split, B, NH); also with n_split == 1, and with lo == hi (no valid
+// key: m = NEG_INF, l = 0, acc = 0).  No combine runs.
+int flash_decode_partials(const void* q, const void* k, const void* v,
+                          float* part, int q_dtype, int kv_dtype, int B,
+                          int NH, int KV, int hd, int lo, int hi,
+                          int n_split, long long k_sb, long long k_ss,
+                          long long k_sh, long long k_sd, long long v_sb,
+                          long long v_ss, long long v_sh, long long v_sd,
+                          int kseq, int kvec, int vvec, float scale,
+                          float softcap, void* stream) {
+  if (q_dtype != repro::kFloat32 && q_dtype != repro::kBFloat16)
+    return cudaErrorInvalidValue;
+  if (n_split < 1 || n_split > MAX_SPLIT || lo < 0 || hi < lo)
+    return cudaErrorInvalidValue;
+  Args a{q, k, v, nullptr, part, q_dtype == repro::kBFloat16, B, NH, KV, lo,
+         hi, n_split, kvec, vvec, {k_sb, k_ss, k_sh, k_sd},
+         {v_sb, v_ss, v_sh, v_sd}, scale, softcap,
+         static_cast<cudaStream_t>(stream), 1};
+  return dispatch_kv(kv_dtype, hd, kseq, a);
+}
+
+// Merge n partials by log-sum-exp into o (BNH, hd) in q's type: acc
+// (n, BNH, hd), m and l (n, BNH), each contiguous float32 (the ranks'
+// partials of flash_decode_partials, gathered).  n <= MAX_PARTS.
+int flash_decode_combine(const float* acc, const float* m, const float* l,
+                         void* o, int q_dtype, int n, int BNH, int hd,
+                         void* stream) {
+  if (q_dtype != repro::kFloat32 && q_dtype != repro::kBFloat16)
+    return cudaErrorInvalidValue;
+  if (n < 1 || n > MAX_PARTS || BNH < 1 || hd < 1 || hd > THREADS)
+    return cudaErrorInvalidValue;
+  return launch_combine(acc, m, l, o, q_dtype == repro::kBFloat16, n, BNH,
+                        hd, static_cast<cudaStream_t>(stream));
 }
 
 const char* repro_cuda_error_string(int err) {

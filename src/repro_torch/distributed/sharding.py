@@ -27,6 +27,9 @@ for the reference from the same specs: the dense layers whose heads,
 chunk of their leaves (Megatron's column- and row-parallel products).
 The mesh step hands the plan to the model through
 :class:`activation_sharding`, and the layers ask :func:`current_tp`.
+The serving bundles also tell the attention layers whether the decode
+cache is split by sequence over ``model`` (:func:`current_cache_seq`:
+``decode_cache_rules`` of ``train/steps.py`` put ``cache_seq`` there).
 """
 from __future__ import annotations
 
@@ -198,13 +201,17 @@ class NamedSharding:
         return to_placements(self.spec, self.mesh)
 
 
-def local_chunk(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+def local_chunk(full: torch.Tensor, mesh, placements,
+                shape=None) -> torch.Tensor:
     """This rank's chunk of ``full`` under ``placements`` (a view).
 
     Several mesh dims sharding one tensor dim split it in mesh order, the
-    first the slowest, as DTensor lays them out."""
+    first the slowest, as DTensor lays them out.  With ``shape`` (the
+    global shape) a dim of ``full`` may already be this rank's chunk, and
+    is kept: a rank that computes its own rows, or its own heads."""
     coord = mesh.get_coordinate()
     sizes = tuple(mesh.shape)
+    shape = tuple(full.shape) if shape is None else tuple(shape)
     out = full
     for d in range(full.dim()):
         dims = [i for i, p in enumerate(placements)
@@ -212,29 +219,39 @@ def local_chunk(full: torch.Tensor, mesh, placements) -> torch.Tensor:
         if not dims:
             continue
         n = math.prod(sizes[i] for i in dims)
-        if full.shape[d] % n:
-            raise ValueError(f"dim {d} of {tuple(full.shape)} does not "
-                             f"split into {n} chunks")
+        if shape[d] % n:
+            raise ValueError(f"dim {d} of {shape} does not split into {n} "
+                             "chunks")
+        step = shape[d] // n
+        if full.shape[d] == step:
+            continue
+        if full.shape[d] != shape[d]:
+            raise ValueError(f"dim {d} of {tuple(full.shape)} is neither "
+                             f"whole nor this rank's chunk of {shape}")
         idx = 0
         for i in dims:
             idx = idx * sizes[i] + coord[i]
-        step = full.shape[d] // n
         out = out.narrow(d, idx * step, step)
     return out
 
 
-def distribute(full: torch.Tensor, sharding: NamedSharding) -> DTensor:
+def distribute(full: torch.Tensor, sharding: NamedSharding,
+               shape=None) -> DTensor:
     """A DTensor on ``sharding.mesh`` holding this rank's chunk of
-    ``full``, which every rank holds whole (no communication).  The chunk
-    is the tensor itself, not a copy, where nothing is split; otherwise it
-    is copied so that ``full`` can be freed."""
+    ``full``, which every rank holds whole (no communication), or with
+    ``shape`` (the global shape) whole or already chunked dim by dim (see
+    :func:`local_chunk`).  The chunk is the tensor itself, not a copy,
+    where nothing is cut; otherwise it is copied so that ``full`` can be
+    freed."""
     placements = sharding.placements
-    local = local_chunk(full, sharding.mesh, placements)
+    shape = tuple(full.shape) if shape is None else tuple(shape)
+    local = local_chunk(full, sharding.mesh, placements, shape)
     if local.numel() != full.numel():
         local = local.contiguous().clone()
     return DTensor.from_local(local, sharding.mesh, placements,
-                              run_check=False, shape=full.shape,
-                              stride=full.contiguous().stride())
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
 
 
 @torch.no_grad()
@@ -246,13 +263,24 @@ def view_as(t, placements=None) -> torch.Tensor:
     A plain tensor is returned as it is."""
     if not isinstance(t, DTensor):
         return t
+    if aliases(t, placements):
+        return t.to_local()
+    mesh = t.device_mesh
+    return t.redistribute(mesh, placements
+                          or [Replicate()] * mesh.ndim).to_local()
+
+
+def aliases(t, placements=None) -> bool:
+    """Whether ``view_as(t, placements)`` is ``t``'s own storage (a plain
+    tensor, or a DTensor whose every mesh dim with another placement has
+    size 1), so that it follows in-place updates of ``t``."""
+    if not isinstance(t, DTensor):
+        return True
     mesh = t.device_mesh
     if placements is None:
         placements = [Replicate()] * mesh.ndim
-    if all(n == 1 or a == b for n, a, b in
-           zip(mesh.shape, t.placements, placements)):
-        return t.to_local()
-    return t.redistribute(mesh, placements).to_local()
+    return all(n == 1 or a == b for n, a, b in
+               zip(mesh.shape, t.placements, placements))
 
 
 # ---------------------------------------------------------------------------
@@ -369,7 +397,7 @@ def axis_groups(mesh, axes) -> list:
 # Activation constraints (ambient, set by the mesh train step)
 # ---------------------------------------------------------------------------
 
-_ACT_CTX: list = []          # stack of (mesh, rules, tp plan, TPRank)
+_ACT_CTX: list = []  # stack of (mesh, rules, tp plan, TPRank, cache seq)
 
 
 class activation_sharding:
@@ -379,10 +407,11 @@ class activation_sharding:
     plan ``tp`` through :func:`current_tp`).  No context: single-device
     code.  ``exclude`` drops mesh axes from every rule: the compressed step
     runs each pod's gradients on their own, as the reference's pod-manual
-    region does."""
+    region does.  ``cache_seq``: the decode cache's sequence is split over
+    ``model`` (the serving bundles; :func:`current_cache_seq`)."""
 
     def __init__(self, mesh, cfg, exclude: tuple = (),
-                 tp: Optional[TPPlan] = None):
+                 tp: Optional[TPPlan] = None, cache_seq: bool = False):
         if mesh is None:
             self.entry = None
         else:
@@ -390,11 +419,14 @@ class activation_sharding:
             if exclude:
                 rules = {k: tuple(a for a in v if a not in exclude)
                          for k, v in rules.items()}
-            rank = None
-            if tp is not None and tp.kinds:
-                rank = TPRank(mesh.get_group("model") if tp.size > 1
+            split = tp is not None and bool(tp.kinds)
+            here = None
+            if split or cache_seq:
+                here = TPRank(mesh.get_group("model")
+                              if mesh_axis_sizes(mesh)["model"] > 1
                               else None, mesh.get_local_rank("model"))
-            self.entry = (mesh, rules, tp, rank)
+            self.entry = (mesh, rules, tp, here if split else None,
+                          here if cache_seq else None)
 
     def __enter__(self):
         if self.entry is not None:
@@ -424,8 +456,16 @@ def current_tp(kind: str) -> Optional[TPRank]:
     None otherwise (no context, no plan, or the kind computes whole)."""
     if not _ACT_CTX:
         return None
-    _, _, tp, rank = _ACT_CTX[-1]
+    _, _, tp, rank, _ = _ACT_CTX[-1]
     return rank if tp is not None and kind in tp.kinds else None
+
+
+def current_cache_seq() -> Optional[TPRank]:
+    """This rank's place on ``model`` when the innermost context's decode
+    cache is split by sequence over ``model`` (this rank holds keys
+    ``rank * S_l .. (rank + 1) * S_l - 1`` of every KV head); None
+    otherwise."""
+    return _ACT_CTX[-1][4] if _ACT_CTX else None
 
 
 def act_constrain(x, logical_axes: tuple):

@@ -101,25 +101,49 @@ def split_ranges(lo: int, hi: int, n_split: int) -> list[tuple[int, int]]:
     return out
 
 
+def chunk_range(pos: int, window: int, offset: int,
+                length: int) -> tuple[int, int]:
+    """The keys [lo, hi) of a cache chunk that holds global keys
+    [offset, offset + length) which a decode step at global ``pos``
+    attends, in the chunk's own coordinates; (0, 0) when it holds none."""
+    lo, hi = valid_range(pos, window)
+    lo, hi = max(lo - offset, 0), min(hi - offset, length)
+    return (lo, hi) if lo < hi else (0, 0)
+
+
+def combine(acc, m, l, dtype):
+    """Merge float32 partials (acc (n, B, NH, hd), m and l (n, B, NH)) by
+    log-sum-exp: M = max m_i, w_i = exp(m_i - M), o = sum w_i acc_i /
+    max(sum w_i l_i, 1e-30).  A partial without keys (m = NEG_INF, l = 0)
+    weighs 0 next to any with keys.  Returns o (B, NH, hd) in ``dtype``."""
+    w = torch.exp(m - m.amax(dim=0))
+    den = torch.clamp((w * l).sum(dim=0), min=1e-30)
+    return ((w[..., None] * acc).sum(dim=0) / den[..., None]).to(dtype)
+
+
 def decode_split(q, k_cache, v_cache, pos: int, *, n_split: int,
                  scale: float, window: int = 0, softcap: float = 0.0,
-                 partials: bool = False):
+                 partials: bool = False, offset: int = 0):
     """:func:`decode` computed as the split-K kernel computes it.
 
     Each split of :func:`split_ranges` gives float32 partials over its
     keys: acc (unnormalized P.V), m (row max) and l (row sum of
     exp(s - m)); a split without keys keeps m = NEG_INF, l = 0, acc = 0.
-    They are merged by log-sum-exp: M = max m_i, w_i = exp(m_i - M),
-    o = sum w_i acc_i / max(sum w_i l_i, 1e-30).  Returns o in q.dtype,
-    and with ``partials`` also (acc (n, B, NH, hd), m (n, B, NH),
-    l (n, B, NH)).
+    They are merged by :func:`combine`.  Returns o in q.dtype, and with
+    ``partials`` also (acc (n, B, NH, hd), m (n, B, NH), l (n, B, NH)).
+
+    With ``offset`` the caches are a chunk of a longer cache that holds
+    its global keys [offset, offset + S): ``pos`` and the window stay
+    global, and the chunk's keys are split as :func:`chunk_range` gives
+    them (a chunk with no valid key gives n partials without keys).
     """
     B, NH, hd = q.shape
-    KV = k_cache.shape[2]
+    S, KV = k_cache.shape[1], k_cache.shape[2]
     G = NH // KV
     qg = q.reshape(B, KV, G, hd).float() * scale
     accs, ms, ls = [], [], []
-    for start, end in split_ranges(*valid_range(pos, window), n_split):
+    for start, end in split_ranges(*chunk_range(pos, window, offset, S),
+                                   n_split):
         if end <= start:
             accs.append(torch.zeros((B, KV, G, hd), device=q.device))
             ms.append(torch.full((B, KV, G), NEG_INF, device=q.device))
@@ -138,9 +162,7 @@ def decode_split(q, k_cache, v_cache, pos: int, *, n_split: int,
     acc = torch.stack(accs).reshape(n_split, B, NH, hd)
     m = torch.stack(ms).reshape(n_split, B, NH)
     l = torch.stack(ls).reshape(n_split, B, NH)
-    w = torch.exp(m - m.amax(dim=0))
-    den = torch.clamp((w * l).sum(dim=0), min=1e-30)
-    o = ((w[..., None] * acc).sum(dim=0) / den[..., None]).to(q.dtype)
+    o = combine(acc, m, l, q.dtype)
     return (o, (acc, m, l)) if partials else o
 
 

@@ -25,6 +25,23 @@ its columns too when the KV heads split as well ("kv_heads"); otherwise
 the rank computes, from the whole leaves, the KV heads its query heads
 read (query head h reads KV head h // G), and their gradient is summed
 over the ranks.  ``flash_attention`` then runs on the local heads.
+
+Serving on a mesh (the prefill and decode bundles of ``train/steps.py``)
+keeps the decode cache split over ``model`` in one of two ways:
+
+- by KV heads, when the plan splits them: each rank computes, writes and
+  attends its own KV heads with its query heads, as above;
+- otherwise every rank's cache holds every KV head: by sequence when
+  ``current_cache_seq()`` says so (``cache_seq`` on ``model``; rank r
+  holds keys ``r * S_l .. (r + 1) * S_l - 1``), else whole.  Each rank
+  computes every KV head's K/V from the whole ``wk``/``wv`` (a prefill
+  returns them all, and the bundle keeps the rank's chunk); a decode
+  step writes ``pos`` on the rank whose chunk holds it.  Attention
+  gathers the query heads over ``model``; on a sequence split it runs
+  ``flash_decode``'s partials entry on the rank's chunk, with ``pos``
+  and the window in global coordinates, gathers the float32 partials
+  (acc, m, l) over ``model`` and merges them with the combine entry.
+  The rank keeps its own query heads for ``wo``.
 """
 from __future__ import annotations
 
@@ -32,9 +49,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distributed.collectives import copy_to, reduce_from
-from repro_torch.distributed.sharding import current_tp
+from repro_torch.distributed.collectives import (
+    copy_to, gathered, reduce_from,
+)
+from repro_torch.distributed.sharding import current_cache_seq, current_tp
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_decode import combine, partials
 from repro_torch.models.params import dense_init, dtype_of, zeros_init
 
 NEG_INF = -2.0 ** 30
@@ -228,7 +248,11 @@ def attn_apply(params, x, cfg, *, local: bool, positions=None,
     cdt = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
     tp = current_tp("heads")
-    q, k, v = _qkv(params, x.to(cdt), cfg, tp)
+    # serving with the query heads split and the KV heads not: the cache
+    # holds every KV head (see the module doc)
+    all_kv = (tp is not None and current_tp("kv_heads") is None
+              and (cache is not None or return_kv))
+    q, k, v = _qkv(params, x.to(cdt), cfg, tp, all_kv=all_kv)
 
     window = cfg.sliding_window if local else 0
 
@@ -237,7 +261,9 @@ def attn_apply(params, x, cfg, *, local: bool, positions=None,
             positions = torch.arange(S, device=x.device)[None, :]
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        out = full_attention(q, k, v, cfg, window=window)
+        ka, va = (k, v) if not all_kv else _read_heads(k, v, tp.rank,
+                                                       q.shape[2], cfg)
+        out = full_attention(q, ka, va, cfg, window=window)
         new_cache = None
         if return_kv:       # decode-layout caches (see decode_attention)
             new_cache = {"k": k.permute(0, 2, 3, 1),
@@ -249,10 +275,17 @@ def attn_apply(params, x, cfg, *, local: bool, positions=None,
                                device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        cache["k"][:, :, :, pos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, :, pos, :] = v[:, 0].to(cache["v"].dtype)
-        out = decode_attention(q, cache["k"], cache["v"], pos, cfg,
-                               window=window)
+        seq = current_cache_seq()
+        S_l = cache["k"].shape[3]
+        at = pos - (0 if seq is None else seq.rank * S_l)
+        if 0 <= at < S_l:           # this rank's chunk holds pos
+            cache["k"][:, :, :, at] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, :, at, :] = v[:, 0].to(cache["v"].dtype)
+        if all_kv or seq is not None:
+            out = _decode_every_kv_head(q, cache, pos, cfg, window, tp, seq)
+        else:
+            out = decode_attention(q, cache["k"], cache["v"], pos, cfg,
+                                   window=window)
         new_cache = cache
 
     out = out.reshape(B, S, -1).to(cdt) @ params["wo"].to(cdt)
@@ -273,10 +306,44 @@ def _kv_read(rank: int, nh: int, cfg):
     return slice(kv_lo * hd, kv_hi * hd), None if uniform else read
 
 
-def _qkv(params, x, cfg, tp):
+def _read_heads(k, v, rank: int, nh: int, cfg):
+    """Of k and v (B,S,KV,hd) with every KV head, the heads that query
+    heads ``rank * nh .. (rank + 1) * nh - 1`` read (see :func:`_kv_read`),
+    one per local query head where their grouping is not uniform."""
+    hd = cfg.head_dim_
+    cols, read = _kv_read(rank, nh, cfg)
+    heads = slice(cols.start // hd, cols.stop // hd)
+    k, v = k[:, :, heads], v[:, :, heads]
+    return (k, v) if read is None else (k[:, :, read], v[:, :, read])
+
+
+def _decode_every_kv_head(q, cache, pos: int, cfg, window: int, tp, seq):
+    """Decode attention of this rank's query heads q (B,1,nh,hd) against a
+    cache that holds every KV head: its whole sequence, or with ``seq``
+    this rank's chunk of it (keys ``rank * S_l ..``), whose partials are
+    merged over ``model`` (see the module doc)."""
+    nh = q.shape[2]
+    if tp is not None:
+        q = gathered(q, tp.group, 2)            # (B,1,NH,hd)
+    if seq is None:
+        out = decode_attention(q, cache["k"], cache["v"], pos, cfg,
+                               window=window)
+    else:
+        kc = cache["k"].permute(0, 3, 1, 2)     # (B,S_l,KV,hd) views
+        vc = cache["v"].permute(0, 2, 1, 3)
+        acc, m, l = partials(q[:, 0], kc, vc, pos,
+                             offset=seq.rank * kc.shape[1],
+                             scale=_qk_scale(cfg), window=window,
+                             softcap=cfg.attn_softcap)
+        out = combine(*(gathered(t, seq.group, 0) for t in (acc, m, l)),
+                      q.dtype)[:, None]
+    return out if tp is None else out[:, :, tp.rank * nh:(tp.rank + 1) * nh]
+
+
+def _qkv(params, x, cfg, tp, *, all_kv: bool = False):
     """q (B,S,NH,hd), k and v (B,S,KV,hd) of x (B,S,D) in the compute
     dtype: every head, or with ``tp`` this rank's query heads and their
-    KV heads (see the module doc)."""
+    KV heads, or (``all_kv``) every KV head (see the module doc)."""
     B, S, _ = x.shape
     cdt, hd = x.dtype, cfg.head_dim_
     w = {n: params[n] for n in ("wq", "wk", "wv")}
@@ -285,7 +352,7 @@ def _qkv(params, x, cfg, tp):
     read = None
     if tp is not None:
         x = copy_to(x, tp.group)
-        if current_tp("kv_heads") is None:
+        if current_tp("kv_heads") is None and not all_kv:
             cols, read = _kv_read(tp.rank, w["wq"].shape[1] // hd, cfg)
             for n in ("wk", "wv", "bk", "bv"):
                 if n in w:

@@ -9,14 +9,17 @@ Under the mesh step's tensor-parallel plan (``distributed.sharding``)
 the MLP and the embedding compute on this rank's chunk of their leaves:
 f before a column-parallel product, g after a row-parallel one or after
 the masked lookup of the rank's vocabulary rows
-(``distributed.collectives``).
+(``distributed.collectives``).  The logit head computes the rank's
+vocabulary columns and gathers them over ``model`` (serving).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.collectives import copy_to, reduce_from
+from repro_torch.distributed.collectives import (
+    copy_to, gathered, reduce_from,
+)
 from repro_torch.distributed.sharding import current_tp
 from repro_torch.models.params import (
     dense_init, dtype_of, embed_init, ones_init,
@@ -117,6 +120,8 @@ def embed(params, tokens, cfg):
 
 
 def logits(params, x, cfg):
+    """Under a plan that splits the vocabulary the head holds this rank's
+    columns, and the logits are gathered whole over ``model``."""
     cdt = dtype_of(cfg.compute_dtype)
     if cfg.tie_embeddings:
         w = params["embedding"].to(cdt).T
@@ -126,4 +131,5 @@ def logits(params, x, cfg):
     if cfg.final_softcap:
         cap = cfg.final_softcap
         out = cap * torch.tanh(out / cap)
-    return out
+    tp = current_tp("vocab")
+    return out if tp is None else gathered(out, tp.group, out.dim() - 1)

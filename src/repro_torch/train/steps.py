@@ -1,11 +1,18 @@
-"""The train step: loss, gradients (optionally over microbatches), AdamW.
+"""Train, prefill and decode step bundles, with mesh-resolved shardings.
 
-Counterpart of ``repro/train/steps.py``'s train bundle.
-``make_step_bundle(cfg, shape, mesh=None)`` returns the
-``train_step(state, batch)`` and the ``init_fn(generator)`` that makes its
-state, ``{"params": Model, "opt": AdamW state}`` (and ``"ef"``, the
-error-feedback buffers, under int8 compression).  The step updates the
-state in place and returns it with ``{"loss", "step"}``.
+Counterpart of ``repro/train/steps.py``.  ``make_step_bundle(cfg, shape,
+mesh=None)`` returns, by ``shape.kind``:
+
+- ``train_step(state, batch)`` and the ``init_fn(generator)`` that makes
+  its state, ``{"params": Model, "opt": AdamW state}`` (and ``"ef"``, the
+  error-feedback buffers, under int8 compression).  The step updates the
+  state in place and returns it with ``{"loss", "step"}``;
+- ``prefill(params, inputs) -> (logits, cache)``;
+- ``serve_step(params, cache, tokens, pos) -> (logits, cache)``.
+
+``train_input_specs`` and ``serve_input_specs`` give the inputs' shapes
+and dtypes as meta tensors (the reference's ``ShapeDtypeStruct``s), and
+``decode_cache_rules`` the reference's adaptive decode-cache rule.
 
 Microbatching follows the reference's ``accumulate``: the gradients of
 ``cfg.microbatches`` slices of the batch are summed in float32 buffers
@@ -49,12 +56,39 @@ jitted GSPMD step:
 Not tensor-parallel (ROADMAP A11c): the mamba and xLSTM leaves, the
 experts of the MoE layer's route without expert parallelism, and
 ``seq_shard``; their ranks along ``model`` repeat the work, which changes
-no result.  Not ported yet: the prefill and decode bundles and the input
-specs of the dry run (ROADMAP A12).
+no result.
+
+Serving.  Mesh-free, ``prefill`` is ``Model.prefill`` and ``serve_step``
+``Model.decode_step``, with ``params`` a ``Model``.  On a mesh both are
+explicit SPMD in the same way as the train step: ``params`` is a
+``Model`` whose leaves are DTensors placed by their resolved specs
+(:func:`place_params`, ``in_shardings[0]``); every rank is given the
+whole global batch of inputs or tokens and takes its rows
+(``batch_spec``); the attention, MLP, embedding and unembedding layers
+compute on the rank's ``model`` chunks through ``tp_plan``.  The outputs
+are DTensors, placed where the reference leaves them to its partitioner
+(``out_shardings``): the logits as the rows of the batch axes and whole
+over the vocabulary (the rank's vocabulary columns are gathered over
+``model``), the cache by ``cache_axes()`` plus
+:func:`decode_cache_rules`.  The decode step reads each attention cache
+leaf's local tensor (no copy) and writes position ``pos`` in place, the
+counterpart of the reference's donated cache: split over ``model`` by
+KV heads, each rank computes, writes and attends its own; split by
+sequence (``cache_seq`` on ``model``, where the KV heads do not divide
+it), each rank holds a chunk of the keys of every KV head, and the
+attention merges the ranks' partials (``models/attention.py``).  The
+mamba, xLSTM and MoE leaves compute on whole views, as in the train step
+(ROADMAP A11c); their cache leaves are placed by their specs
+(``inner``/``heads`` on ``model``), so the decode step gathers them whole
+over ``model`` for the computation and writes back only its own chunk.
+Still to port: the roofline analysis (ROADMAP A12a) and the dry run that
+lowers these bundles (A12c).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -67,24 +101,56 @@ from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.distributed.collectives import gathered
 from repro_torch.distributed.sharding import (
     P, NamedSharding, activation_sharding, axis_groups, batch_spec,
-    distribute, local_chunk, resolve_axes_tree, tp_plan, view_as,
+    aliases, distribute, local_chunk, resolve_axes_tree, tp_plan, view_as,
 )
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import Model
 from repro_torch.models.moe import _ep_applicable
-from repro_torch.models.params import from_jax_params, to_jax_params
+from repro_torch.models.params import (
+    dtype_of, from_jax_params, to_jax_params,
+)
 from repro_torch.optim import AdamW, OptConfig, cosine_warmup
 from repro_torch.optim.compress import compressed_pod_allreduce, ef_init
 
 
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors: shapes and dtypes, nothing allocated)
+# ---------------------------------------------------------------------------
+
+
+def _inputs_meta(cfg: ArchConfig, B: int, S: int) -> torch.Tensor:
+    if cfg.input_mode == "tokens":
+        return torch.empty((B, S), dtype=torch.int32, device="meta")
+    # vlm/audio stubs: precomputed patch/frame embeddings
+    return torch.empty((B, S, cfg.d_model), dtype=dtype_of(cfg.compute_dtype),
+                       device="meta")
+
+
 def train_input_specs(cfg: ArchConfig, shape: ShapeCfg) -> dict:
-    raise NotImplementedError("input specs of the dry run are not ported "
-                              "to repro_torch yet (ROADMAP A12)")
+    B, S = shape.global_batch, shape.seq_len
+    return {"inputs": _inputs_meta(cfg, B, S),
+            "labels": torch.empty((B, S), dtype=torch.int32, device="meta")}
 
 
 def serve_input_specs(cfg: ArchConfig, shape: ShapeCfg) -> dict:
-    raise NotImplementedError("input specs of the dry run are not ported "
-                              "to repro_torch yet (ROADMAP A12)")
+    """Decode: one new token against a seq_len KV cache (the cache in the
+    port's layout, one dict per group)."""
+    B = shape.global_batch
+    cache = Model(cfg, device="meta").init_cache(
+        B, shape.seq_len, dtype_of(cfg.cache_dtype))
+    return {"cache": cache, "tokens": _inputs_meta(cfg, B, 1),
+            "pos": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def decode_cache_rules(cfg: ArchConfig, mesh) -> dict:
+    """Adaptive decode-cache sharding.
+
+    If KV heads don't divide the model axis (MQA/GQA with few KV heads),
+    shard the cache *sequence* dim over "model" instead (context-parallel
+    decode) so the cache doesn't replicate 16x.
+    """
+    m = mesh_axis_sizes(mesh).get("model", 1)
+    return {"cache_seq": ("model",)} if cfg.n_kv_heads % m else {}
 
 
 @dataclass
@@ -92,11 +158,12 @@ class StepBundle:
     cfg: ArchConfig
     shape: ShapeCfg
     mesh: Any                    # a DeviceMesh, or None
-    step_fn: Callable            # train_step(state, batch)
+    step_fn: Callable            # train_step / prefill / serve_step
     init_fn: Optional[Callable] = None   # init_fn(generator) -> state
-    # on a mesh: (state shardings, batch shardings) and (state shardings,
-    # metrics shardings), trees of NamedSharding (the reference's
-    # in_shardings / out_shardings)
+    # on a mesh: trees of NamedSharding (the reference's in_shardings /
+    # out_shardings).  train: (state, batch) and (state, metrics);
+    # prefill: (params, inputs) and (logits, cache); decode: (params,
+    # cache, tokens, pos) and (logits, cache)
     in_shardings: Any = None
     out_shardings: Any = None
     # on a mesh: the tensor-parallel plan over "model" (a TPPlan: which
@@ -111,12 +178,15 @@ def make_opt(cfg: ArchConfig, total_steps: int = 100_000) -> AdamW:
 
 def make_step_bundle(cfg: ArchConfig, shape: ShapeCfg,
                      mesh=None) -> StepBundle:
-    if shape.kind != "train":
-        raise NotImplementedError(f"{shape.kind!r} step bundles are not "
-                                  "ported to repro_torch yet (ROADMAP A12)")
-    if mesh is None:
-        return _train_bundle(cfg, shape)
-    return _mesh_bundle(cfg, shape, mesh)
+    if shape.kind == "train":
+        if mesh is None:
+            return _train_bundle(cfg, shape)
+        return _mesh_bundle(cfg, shape, mesh)
+    if shape.kind == "prefill":
+        return _prefill_bundle(cfg, shape, mesh)
+    if shape.kind == "decode":
+        return _decode_bundle(cfg, shape, mesh)
+    raise ValueError(shape.kind)
 
 
 # ---------------------------------------------------------------------------
@@ -180,14 +250,7 @@ def place_state(cfg: ArchConfig, full: dict, shardings: dict):
     mesh = shardings["opt"]["step"].mesh
     if mesh.get_coordinate() is None:
         return None
-    model = Model(cfg, device="meta")
-    for key, p in list(model.named_parameters()):
-        path, _, name = key.rpartition(".")
-        leaf = nn.Parameter(distribute(full["params"][key],
-                                       shardings["params"][key]),
-                            requires_grad=False)
-        leaf.init = p.init
-        model.get_submodule(path)._parameters[name] = leaf
+    model = place_params(cfg, full["params"], shardings["params"])
 
     def place(vals, shs):
         if isinstance(shs, dict):
@@ -198,6 +261,20 @@ def place_state(cfg: ArchConfig, full: dict, shardings: dict):
     if "ef" in shardings:
         state["ef"] = place(full["ef"], shardings["ef"])
     return state
+
+
+def place_params(cfg: ArchConfig, full: dict, shardings: dict) -> Model:
+    """A ``Model`` whose leaves are DTensors of this rank's chunks, placed
+    by ``shardings`` ({key: NamedSharding}), from full values that every
+    rank holds (``{key: tensor}``, keyed like the ``state_dict``)."""
+    model = Model(cfg, device="meta")
+    for key, p in list(model.named_parameters()):
+        path, _, name = key.rpartition(".")
+        leaf = nn.Parameter(distribute(full[key], shardings[key]),
+                            requires_grad=False)
+        leaf.init = p.init
+        model.get_submodule(path)._parameters[name] = leaf
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +353,8 @@ def _state_axes(param_axes: dict, compression: bool) -> dict:
 def _named(tree, mesh):
     if isinstance(tree, dict):
         return {k: _named(v, mesh) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_named(v, mesh) for v in tree]
     return NamedSharding(mesh, tree)
 
 
@@ -306,6 +385,29 @@ def _bind(model: Model, tensors: dict) -> None:
     for key, t in tensors.items():
         path, _, name = key.rpartition(".")
         model.get_submodule(path)._parameters[name] = t
+
+
+def _expert_views(cfg, mesh, param_axes: dict, param_sh: dict, rows: int,
+                  seq_len: int, exclude: tuple = ()) -> dict:
+    """Under expert parallelism (``ep_shard``, where ``_ep_applicable`` to
+    ``rows`` x ``seq_len`` tokens a rank): the placements of each expert
+    leaf's compute view, this rank's experts; {} otherwise."""
+    sizes = mesh_axis_sizes(mesh)
+    with activation_sharding(mesh, cfg, exclude):
+        ep = (cfg.moe is not None and cfg.moe.ep_shard and _ep_applicable(
+            cfg, torch.empty((rows, seq_len, 0), device="meta"), mesh))
+    views = {}
+    if ep:
+        for key, axes in param_axes.items():
+            if "expert" in axes:
+                d = axes.index("expert")
+                views[key] = [Shard(d) if a == "model" else Replicate()
+                              for a in sizes]
+                if param_sh[key].placements[
+                        list(sizes).index("model")] != Shard(d):
+                    raise ValueError(f"{key}: its experts are not split "
+                                     "over 'model'")
+    return views
 
 
 def _mesh_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
@@ -339,21 +441,9 @@ def _mesh_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
     # --- expert parallelism: the expert leaves' view is this rank's experts
     rows_per_mb = B // (cfg.microbatches * math.prod(
         sizes[a] for a in ("pod", "data") if a in sizes))
-    with activation_sharding(mesh, cfg, exclude):
-        ep = (cfg.moe is not None and cfg.moe.ep_shard and _ep_applicable(
-            cfg, torch.empty((rows_per_mb, shape.seq_len, 0),
-                             device="meta"), mesh))
-    ep_view = {}
-    if ep:
-        for key, axes in param_axes.items():
-            if "expert" in axes:
-                d = axes.index("expert")
-                ep_view[key] = [Shard(d) if a == "model" else Replicate()
-                                for a in sizes]
-                if state_sh["params"][key].placements[
-                        list(sizes).index("model")] != Shard(d):
-                    raise ValueError(f"{key}: its experts are not split "
-                                     "over 'model'")
+    ep_view = _expert_views(cfg, mesh, param_axes, state_sh["params"],
+                            rows_per_mb, shape.seq_len, exclude)
+    if ep_view:
         if compression and sizes["model"] > 1:
             raise NotImplementedError(
                 "int8 compression with expert parallelism over a model "
@@ -450,3 +540,205 @@ def _mesh_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
     return StepBundle(cfg, shape, mesh, train_step, init_fn,
                       in_shardings=(state_sh, batch_sh),
                       out_shardings=(state_sh, metrics_sh), tp=tp)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill and decode
+# ---------------------------------------------------------------------------
+
+
+def _attn_layers(cfg: ArchConfig) -> set:
+    return {f"l{i}" for i, layer in enumerate(cfg.pattern)
+            if layer.mixer in ("attn", "attn_local")}
+
+
+def _on_model(spec: P, d: int) -> bool:
+    part = spec[d] if d < len(spec) else None
+    return part == "model" or (isinstance(part, tuple) and "model" in part)
+
+
+class _ServeMesh:
+    """What the prefill and decode bundles share on a mesh: the parameter,
+    input, logit and cache shardings, the tensor-parallel plan and the
+    compute views, and how the cache splits over ``model``."""
+
+    def __init__(self, cfg: ArchConfig, shape: ShapeCfg, mesh,
+                 step_len: int):
+        self.cfg, self.mesh = cfg, mesh
+        sizes = self.sizes = mesh_axis_sizes(mesh)
+        meta = Model(cfg, device="meta")
+        self.shapes, param_axes = meta.param_shapes()
+        self.param_sh = _named(resolve_axes_tree(param_axes, self.shapes,
+                                                 cfg, mesh), mesh)
+        B = shape.global_batch
+        extra = 1 if cfg.input_mode == "tokens" else 2
+        self.inputs_sh = NamedSharding(
+            mesh, batch_spec(mesh, extra_dims=extra, batch_size=B))
+        self.logits_sh = NamedSharding(
+            mesh, batch_spec(mesh, extra_dims=2, batch_size=B))
+        self.logits_shape = (B, 1, cfg.vocab_size)
+        self.cache_shapes = meta.init_cache(B, shape.seq_len)
+        self.cache_sh = _named(resolve_axes_tree(
+            meta.cache_axes(), self.cache_shapes, cfg, mesh,
+            decode_cache_rules(cfg, mesh)), mesh)
+        self.tp = tp_plan(cfg, sizes, param_axes,
+                          {k: sh.spec for k, sh in self.param_sh.items()})
+        self.attn = _attn_layers(cfg)
+        specs = [sh.spec for gc in self.cache_sh for name, lc in gc.items()
+                 if name in self.attn for sh in lc["mixer"].values()]
+        # K is (B, KV, hd, S) and V (B, KV, S, hd)
+        kv_split = any(_on_model(sp, 1) for sp in specs)
+        self.cache_seq = any(_on_model(sp, 3) or _on_model(sp, 2)
+                             for sp in specs)
+        if kv_split and sizes["model"] > 1 \
+                and "kv_heads" not in self.tp.kinds:
+            raise NotImplementedError(
+                "a decode cache split by KV heads over 'model' needs the "
+                "tensor-parallel plan to split the KV heads too")
+        rows = B // math.prod(sizes[a] for a in ("pod", "data")
+                              if a in sizes)
+        self.views = {key: self.tp.placements(key, sizes)
+                      for key in self.tp.views}
+        self.views.update(_expert_views(cfg, mesh, param_axes,
+                                        self.param_sh, rows, step_len))
+        # {params: (its leaves, the compute model bound to their views,
+        # the views gathered per call)}
+        self._bound = weakref.WeakKeyDictionary()
+
+    def context(self):
+        return activation_sharding(self.mesh, self.cfg, (), self.tp,
+                                   self.cache_seq)
+
+    @contextlib.contextmanager
+    def bound(self, params: Model):
+        """A compute model whose leaves are ``params``' compute views.  It
+        is built at the first call with ``params`` and kept while they
+        live: the views that are a leaf's own local tensor (every view on
+        one rank) are bound once and follow in-place updates; the views
+        that gather over a mesh axis are made for the duration of each
+        call.  A leaf of ``params`` replaced by another rebuilds it."""
+        leaves = tuple(params.parameters())
+        entry = self._bound.get(params)
+        if entry is None or any(a is not b for a, b in
+                                zip(entry[0], leaves)):
+            entry = self._bind_views(params, leaves)
+        _, model, gathered = entry
+        for module, name, p, placements, _ in gathered:
+            module._parameters[name] = view_as(p, placements)
+        try:
+            yield model
+        finally:
+            for module, name, _, _, meta in gathered:
+                module._parameters[name] = meta
+
+    def _bind_views(self, params: Model, leaves: tuple):
+        model = Model(self.cfg, device="meta")
+        own, gathered = {}, []
+        for key, p in params.named_parameters():
+            placements = self.views.get(key)
+            if aliases(p, placements):
+                own[key] = view_as(p, placements)
+            else:
+                path, _, name = key.rpartition(".")
+                gathered.append((model.get_submodule(path), name, p,
+                                 placements, self.shapes[key]))
+        _bind(model, own)
+        entry = self._bound[params] = (leaves, model, gathered)
+        return entry
+
+    def rows(self, inputs: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the global batch ``inputs``."""
+        return local_chunk(inputs, self.mesh, self.inputs_sh.placements)
+
+    def logits(self, logits: torch.Tensor) -> DTensor:
+        """This rank's rows of the logits, whole over the vocabulary."""
+        return distribute(logits, self.logits_sh, self.logits_shape)
+
+    def place_cache(self, cache: list) -> list:
+        """A prefill's cache, computed on this rank, as DTensors placed by
+        the cache shardings: the rank's chunk of each leaf."""
+        out = []
+        for g, gc in enumerate(cache):
+            out.append({})
+            for name, lc in gc.items():
+                shs = self.cache_sh[g][name]["mixer"]
+                full = self.cache_shapes[g][name]["mixer"]
+                out[g][name] = {"mixer": {
+                    n: distribute(t, shs[n], full[n].shape)
+                    for n, t in lc["mixer"].items()}}
+        return out
+
+    def compute_cache(self, cache: list) -> list:
+        """The tensors a decode step computes with: each attention leaf's
+        local tensor (written in place), every other leaf gathered whole
+        over ``model`` (the rank's own rows)."""
+        out = []
+        for gc in cache:
+            out.append({})
+            for name, lc in gc.items():
+                leaves = {}
+                for n, t in lc["mixer"].items():
+                    if name in self.attn:
+                        leaves[n] = t.to_local()
+                    else:
+                        leaves[n] = view_as(t, [
+                            Replicate() if a == "model" else p
+                            for a, p in zip(self.sizes, t.placements)])
+                out[-1][name] = {"mixer": leaves}
+        return out
+
+    def write_back(self, cache: list, new: list) -> None:
+        """Copy this rank's chunk of each recurrent state that a decode
+        step computed whole over ``model`` into the cache's leaf."""
+        for g, gc in enumerate(cache):
+            for name, lc in gc.items():
+                if name in self.attn:
+                    continue
+                shs = self.cache_sh[g][name]["mixer"]
+                for n, t in lc["mixer"].items():
+                    t.to_local().copy_(local_chunk(
+                        new[g][name]["mixer"][n], self.mesh,
+                        shs[n].placements, t.shape))
+
+
+def _prefill_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
+    if mesh is None:
+        def prefill(params: Model, inputs):
+            return params.prefill(inputs)
+
+        return StepBundle(cfg, shape, None, prefill)
+    sv = _ServeMesh(cfg, shape, mesh, shape.seq_len)
+
+    def prefill(params: Model, inputs):
+        """-> (logits (B, 1, V) and the cache, DTensors placed by
+        ``out_shardings``)."""
+        with sv.bound(params) as model, sv.context():
+            logits, cache = model.prefill(sv.rows(inputs))
+        return sv.logits(logits), sv.place_cache(cache)
+
+    return StepBundle(cfg, shape, mesh, prefill,
+                      in_shardings=(sv.param_sh, sv.inputs_sh),
+                      out_shardings=(sv.logits_sh, sv.cache_sh), tp=sv.tp)
+
+
+def _decode_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
+    if mesh is None:
+        def serve_step(params: Model, cache, tokens, pos):
+            return params.decode_step(cache, tokens, int(pos))
+
+        return StepBundle(cfg, shape, None, serve_step)
+    sv = _ServeMesh(cfg, shape, mesh, 1)
+
+    def serve_step(params: Model, cache: list, tokens, pos):
+        """-> (logits (B, 1, V), a DTensor placed by ``out_shardings[0]``,
+        and ``cache``, written in place)."""
+        local = sv.compute_cache(cache)
+        with sv.bound(params) as model, sv.context():
+            logits, new = model.decode_step(local, sv.rows(tokens), int(pos))
+        sv.write_back(cache, new)
+        return sv.logits(logits), cache
+
+    return StepBundle(cfg, shape, mesh, serve_step,
+                      in_shardings=(sv.param_sh, sv.cache_sh, sv.inputs_sh,
+                                    NamedSharding(mesh, P())),
+                      out_shardings=(sv.logits_sh, sv.cache_sh), tp=sv.tp)

@@ -12,6 +12,7 @@ reference's XLA paths) at 2e-4, the bar of ``tests/test_models.py``; so
 are the xLSTM smoke model and the application queries (ROADMAP C3).
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -19,10 +20,13 @@ import torch
 
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.core.spe import _merge_prefill_cache
-from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops, ref
 from repro_torch.models import Model
+
+# the kernel modules (their launch counters): the package names resolve to
+# ops's callables
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
+fd = importlib.import_module("repro_torch.kernels.flash_decode")
 
 pytestmark = pytest.mark.cuda
 
@@ -185,6 +189,41 @@ def test_flash_decode_forced_splits_match_decode_split(n_split, S, pos,
     out = fd.flash_decode(q, kc, vc, pos, **kw)
     assert fd.launches == before + 1
     close(out, ref.decode_split(q, kc, vc, pos, n_split=n_split, **kw), 2e-5)
+    close(out, ref.decode(q, kc, vc, pos, **kw), 2e-5)
+
+
+@pytest.mark.parametrize("pos,window", [(2047, 0), (2047, 300), (1000, 0),
+                                        (1000, 100)])
+@pytest.mark.parametrize("m", [1, 4])
+def test_flash_decode_partials_and_combine(pos, window, m, cuda):
+    """The partials entry on each of m sequence chunks (a cache split over
+    m ranks), the partials combined by the combine entry: each chunk's
+    partials against ``ref.decode_split(..., partials=True)`` at the same
+    split count and offset, the merged output against ``ref.decode``;
+    chunks without a valid key give m = NEG_INF, l = 0."""
+    B, NH, KV, hd, S = 2, 8, 2, 64, 2048
+    q = arrays(10, (B, NH, hd))[0].to(cuda)
+    kc, vc = decode_caches(11, B, S, KV, hd, torch.float32, True)
+    kw = dict(scale=hd ** -0.5, window=window, softcap=30.0)
+    c = S // m
+    before = (fd.partials_launches, fd.combine_launches, fd.launches)
+    parts = [fd.partials(q, kc[:, r * c:(r + 1) * c],
+                         vc[:, r * c:(r + 1) * c], pos, offset=r * c, **kw)
+             for r in range(m)]
+    for r, got in enumerate(parts):
+        _, want = ref.decode_split(q, kc[:, r * c:(r + 1) * c],
+                                   vc[:, r * c:(r + 1) * c], pos,
+                                   n_split=got[0].shape[0], partials=True,
+                                   offset=r * c, **kw)
+        for g, w in zip(got, want):
+            close(g, w, 2e-5 * max(float(w.abs().max()), 1.0))
+        if ref.chunk_range(pos, window, r * c, c) == (0, 0):
+            assert bool((got[1] == ref.NEG_INF).all())
+            assert bool((got[2] == 0).all())
+    acc, mx, l = (torch.cat([p[i] for p in parts]) for i in range(3))
+    out = fd.combine(acc, mx, l, q.dtype)
+    assert (fd.partials_launches, fd.combine_launches, fd.launches) == (
+        before[0] + m, before[1] + 1, before[2])
     close(out, ref.decode(q, kc, vc, pos, **kw), 2e-5)
 
 

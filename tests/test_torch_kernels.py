@@ -8,15 +8,20 @@ atol = rtol = 2e-5, bfloat16 2e-2.
 The CUDA kernels themselves are tested on the card by
 ``tests/test_torch_cuda.py``.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as jops, ref as jref
-from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops, ref
+
+# the kernel modules (their launch counters): the package names resolve to
+# ops's callables
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
+fd = importlib.import_module("repro_torch.kernels.flash_decode")
 
 FWD_CASES = [
     # B, S, NH, KV, hd, window, softcap

@@ -275,14 +275,38 @@ def test_step_deltas_are_not_zero():
         assert not torch.equal(t, before[k]), k
 
 
-def test_unported_bundles_raise():
-    cfg = reduce_for_smoke(get_config("qwen2-7b"))
-    for kind in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            make_step_bundle(cfg, ShapeCfg("s", 16, 2, kind))
-        # a mesh changes nothing: the prefill and decode bundles wait for A12
-        with pytest.raises(NotImplementedError, match="A12"):
-            make_step_bundle(cfg, ShapeCfg("s", 16, 2, kind), mesh=object())
-    for fn in (train_input_specs, serve_input_specs):
-        with pytest.raises(NotImplementedError, match="A12"):
-            fn(cfg, ShapeCfg("s", 16, 2, "train"))
+def test_serve_bundles_and_input_specs_exist():
+    """The prefill and decode bundles and the input specs are ported:
+    mesh-free, ``prefill`` is ``Model.prefill`` and ``serve_step``
+    ``Model.decode_step``, bit for bit; the specs are meta tensors (their
+    shapes and dtypes against the reference:
+    ``tests/test_torch_serve_specs.py``; the bundles on meshes:
+    ``tests/test_torch_serve_bundles.py``); a kind the reference does not
+    know raises."""
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen2-7b")),
+                              cache_dtype="float32")
+    model = Model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    B, S = 2, 16
+    toks = torch.randint(0, cfg.vocab_size, (B, S),
+                         generator=torch.Generator().manual_seed(1))
+    pb = make_step_bundle(cfg, ShapeCfg("p", S, B, "prefill"))
+    db = make_step_bundle(cfg, ShapeCfg("d", S, B, "decode"))
+    assert pb.mesh is None and pb.in_shardings is None
+    logits, cache = pb.step_fn(model, toks)
+    want, plain = model.prefill(toks)
+    assert torch.equal(logits, want)
+    nxt = torch.argmax(logits[:, -1], -1)[:, None]
+    logits, cache = db.step_fn(model, cache, nxt, torch.tensor(S - 1))
+    want, plain = model.decode_step(plain, nxt, S - 1)
+    assert torch.equal(logits, want)
+    for gc, gp in zip(cache, plain):
+        for layer in gc:
+            for n, t in gc[layer]["mixer"].items():
+                assert torch.equal(t, gp[layer]["mixer"][n])
+    shape = ShapeCfg("s", S, B, "decode")
+    assert train_input_specs(cfg, shape)["inputs"].device.type == "meta"
+    assert serve_input_specs(cfg, shape)["tokens"].device.type == "meta"
+    with pytest.raises(ValueError, match="score"):
+        make_step_bundle(cfg, ShapeCfg("s", S, B, "score"))

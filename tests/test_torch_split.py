@@ -11,14 +11,18 @@ The split rule (``flash_decode.split_count``) is tested as a pure
 function.  The kernels themselves are tested on the card by
 ``tests/test_torch_cuda.py``.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as jops, ref as jref
-from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ref
+
+# the kernel module: the package name resolves to ops's callable
+fd = importlib.import_module("repro_torch.kernels.flash_decode")
 
 # the DECODE_CASES of tests/test_torch_kernels.py, then longer caches and
 # windows that start inside a split unit
@@ -153,3 +157,40 @@ def test_split_rule_splits_the_long_decode():
     lo, hi = ref.valid_range(32767)
     assert fd.split_count(8 * 4, lo, hi, 132 * 2) == 8
     assert fd.split_count(8 * 4, lo, hi, 132 * 3) == 12
+
+
+# the decode bundle's sequence split over "model": m ranks each hold S / m
+# keys of every KV head; (window, softcap)
+SEQ_SPLIT = [(0, 0.0), (0, 30.0), (9, 0.0), (24, 50.0)]
+
+
+@pytest.mark.parametrize("window,cap", SEQ_SPLIT)
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+def test_chunk_partials_combine_to_decode(m, window, cap):
+    """The partials entry on each of m sequence chunks (pos and the window
+    global, the chunk's offset given), combined over the ranks by the
+    combine entry, equal ``ref.decode`` and the reference's
+    ``ref.decode`` at every position; a chunk with no valid key gives
+    m = NEG_INF and l = 0."""
+    B, S, NH, KV, hd = 2, 64, 8, 2, 16
+    qa, ka, va = arrays(m + window, (B, NH, hd), (B, S, KV, hd),
+                        (B, S, KV, hd))
+    q, k, v = (torch.from_numpy(a) for a in (qa, ka, va))
+    c = S // m
+    kw = dict(scale=hd ** -0.5, window=window, softcap=cap)
+    for pos in range(S):
+        parts = [fd.partials(q, k[:, r * c:(r + 1) * c],
+                             v[:, r * c:(r + 1) * c], pos, offset=r * c,
+                             **kw) for r in range(m)]
+        acc, mx, l = (torch.cat([p[i] for p in parts]) for i in range(3))
+        assert acc.shape == (m, B, NH, hd) and l.shape == (m, B, NH)
+        out = fd.combine(acc, mx, l, torch.float32)
+        close(out, ref.decode(q, k, v, pos, **kw))
+        close(out, jref.decode(jnp.asarray(qa), jnp.asarray(ka),
+                               jnp.asarray(va), pos, **kw))
+        lo, hi = ref.valid_range(pos, window)
+        for r in range(m):
+            if ref.chunk_range(pos, window, r * c, c) == (0, 0):
+                assert r * c >= hi or (r + 1) * c <= lo
+                assert torch.all(mx[r] == ref.NEG_INF)
+                assert torch.all(l[r] == 0) and torch.all(acc[r] == 0)
