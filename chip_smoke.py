@@ -102,7 +102,17 @@ Phases, each of which raises on failure:
          flash-decode's partials mode on 4 sequence chunks of one layer's
          cache, combined, held against whole flash_decode and
          ``ref.decode_split(..., partials=True)`` (a window, chunks with
-         no valid key) and timed with the bound of the same decode.
+         no valid key) and timed with the bound of the same decode; the
+         host cost of flash_decode's ``torch.library`` operator per call
+         and per decode step.
+  (l)    the dry run (``repro_torch.launch.dryrun``): qwen2-7b at
+         prefill_32k and decode_32k on the fake 16x16 mesh (rank 0 of 256
+         fake ranks, in a process of its own), each roofline line
+         printed; (k)'s two one-card cells traced on fake CUDA tensors and
+         on fake meta tensors (a host without CUDA's trace), their FLOPs
+         equal to the FLOPs counted on real CUDA tensors in (k) and no
+         kernel launched; t_compute, t_memory and their max beside (k)'s
+         measured device times.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -2341,6 +2351,41 @@ def profile_call(tag, fn, wall_s) -> dict:
     return dict(kernels=n, busy_ms=busy, idle_share=idle)
 
 
+def real_flops(fn) -> int:
+    """The FLOPs ``FlopCounterMode`` counts in one call of ``fn`` on real
+    CUDA tensors (the kernels launch: their operators' formulas)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    torch.cuda.synchronize()
+    return fc.get_total_flops()
+
+
+def op_host_cost(fd, q, kc, vc, pos, scale, calls=200, reps=6) -> float:
+    """Host microseconds a ``flash_decode`` call through its
+    ``torch.library`` operator takes beyond the same launch called
+    directly (``_decode_launch``, the operator's CUDA kernel): blocks of
+    ``calls`` back-to-back calls of each, alternating, no sync inside a
+    block (the launch queue does not fill), the median of the paired
+    differences."""
+    import torch
+    runs = {"op": lambda: fd.flash_decode(q, kc, vc, pos, scale=scale),
+            "direct": lambda: fd._decode_launch(q, kc, vc, pos, scale, 0,
+                                                0.0)}
+    per = {"op": [], "direct": []}
+    for i in range(reps):
+        for name in (("op", "direct") if i % 2 else ("direct", "op")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                runs[name]()
+            per[name].append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+    return statistics.median(a - b for a, b in zip(per["op"],
+                                                   per["direct"]))
+
+
 def phase_k1() -> dict:
     """qwen2-7b at full width and depth (28 layers, bf16) through
     ``make_step_bundle`` on the (1, 1) ("data", "model") mesh of one NCCL
@@ -2433,6 +2478,7 @@ def phase_k1() -> dict:
         f"{plain_prefill_s:.3f} s), "
         f"launches {p_launches}, peak {p_peak:.3f} GiB; logits and "
         f"{n_leaves} cache leaves equal Model.prefill's bit for bit")
+    prefill_flops = real_flops(lambda: pb.step_fn(params, toks))
     del logits, cache, want_logits, want_cache
     gc.collect()
     torch.cuda.empty_cache()
@@ -2516,6 +2562,17 @@ def phase_k1() -> dict:
     step_s = statistics.median(walls[1:])
     prof_d = profile_call("[k] decode step", lambda: db.step_fn(
         params, cache, tok, S - 1), step_s)
+    decode_flops = real_flops(lambda: db.step_fn(params, cache, tok, S - 1))
+    op_us = op_host_cost(fd, torch.randn(
+        (B, cfg.n_heads, cfg.head_dim_), generator=g, device=DEV).to(
+            torch.bfloat16), cache[0]["l0"]["mixer"]["k"].to_local().permute(
+                0, 3, 1, 2), cache[0]["l0"]["mixer"]["v"].to_local().permute(
+                    0, 2, 1, 3), S - 1, cfg.head_dim_ ** -0.5)
+    log(f"[k] {gpu_line()}: flash_decode through its torch.library "
+        f"operator costs the host {op_us} us a call more than its launch "
+        f"called directly (median of paired blocks of 200 calls), "
+        f"{op_us * cfg.n_layers} us a decode step of {cfg.n_layers} layers "
+        f"against a step of {step_s * 1e6:.1f} us")
     n_split = fd.plan(torch.empty((B, cfg.n_heads, cfg.head_dim_),
                                   dtype=torch.bfloat16, device=DEV),
                       cache[0]["l0"]["mixer"]["k"].to_local().permute(
@@ -2535,6 +2592,10 @@ def phase_k1() -> dict:
                 prefill_peak_gib=p_peak, prefill_idle=prof_p["idle_share"],
                 step_s=step_s, walls=walls, decode_peak_gib=d_peak,
                 decode_idle=prof_d["idle_share"],
+                prefill_busy_ms=prof_p["busy_ms"],
+                decode_busy_ms=prof_d["busy_ms"],
+                prefill_flops=prefill_flops, decode_flops=decode_flops,
+                op_host_us=op_us,
                 launches={"flash_attention": p_launches["flash_attention"],
                           "flash_decode": sum(n[0] for n in launches),
                           "partials": sum(n[2] for n in launches)})
@@ -2751,6 +2812,112 @@ def phase_k(rnd) -> dict:
     return dict(main, prefill=prefill, decode=decode, partials=partials)
 
 
+# ---------------------------------------------------------------------------
+# (l) the dry run: the roofline of the card's program, traced
+# ---------------------------------------------------------------------------
+
+L_CELLS = ("prefill_32k", "decode_32k")
+DRYRUN = """
+import json, sys
+from repro_torch.launch.dryrun import run_cell
+out = {s: run_cell("qwen2-7b", s, out_dir=sys.argv[1]) for s in sys.argv[2:]}
+print(json.dumps(out))
+"""
+
+
+def phase_l(serve: dict) -> dict:
+    """(l1) ``launch/dryrun.run_cell`` for qwen2-7b at prefill_32k and
+    decode_32k on the fake 16x16 mesh (rank 0 of 256 fake ranks, in a
+    process of its own); (l2) phase k's one-card cells on the (1, 1) mesh
+    of one NCCL rank traced on fake CUDA tensors, and on fake meta tensors
+    as a host without CUDA traces them: both FLOP counts equal to the
+    FLOPs counted in (k) on real CUDA tensors, no kernel launched; (l3)
+    their roofline terms at the H100's rates beside (k)'s measured device
+    times."""
+    import os
+    import tempfile
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.analysis.program import analyze_program, card_trace
+    from repro_torch.analysis.roofline import roofline_terms
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import step_inputs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import make_step_bundle
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run(
+            [sys.executable, "-c", DRYRUN, tmp, *L_CELLS],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"[l] the dry run failed: {r.stderr[-3000:]}")
+    cells = json.loads(r.stdout.strip().splitlines()[-1])
+    for line in r.stdout.splitlines():
+        if line.startswith("[dryrun]"):
+            log(f"[l] {line}")
+    for name, c in cells.items():
+        if c["status"] != "OK" or c["n_chips"] != 256 or not \
+                c["hlo_analysis"]["flops_per_device"] > 0:
+            raise AssertionError(f"[l] {name} on 16x16: {c}")
+        log(f"[l] {name} 16x16 per device: "
+            f"{c['hlo_analysis']['flops_per_device']} FLOPs, "
+            f"{c['hlo_analysis']['hbm_bytes_per_device']} HBM bytes, "
+            f"{c['hlo_analysis']['ici_bytes_per_device']} ICI bytes; "
+            f"roofline {c['roofline']}")
+    cfg = get_config(QWEN_ARCH)
+    out = {"16x16": {k: c["roofline"] for k, c in cells.items()}}
+    with nccl_rank():
+        mesh = make_mesh((1, 1), ("data", "model"), DEV)
+        for tag, shape in zip(("prefill", "decode"), k_shapes()):
+            bundle = make_step_bundle(cfg, shape, mesh)
+            before = (fa.launches, fd.launches, fd.partials_launches,
+                      fd.combine_launches)
+            traced = {}
+            for device in ("cuda", "meta"):
+                t1 = time.perf_counter()
+                with FakeTensorMode(allow_non_fake_inputs=True), \
+                        card_trace(device):
+                    traced[device] = analyze_program(
+                        bundle.step_fn, *step_inputs(bundle, device))
+                log(f"[l] {tag} traced on fake {device} tensors in "
+                    f"{time.perf_counter() - t1:.2f} s")
+            after = (fa.launches, fd.launches, fd.partials_launches,
+                     fd.combine_launches)
+            real = serve[f"{tag}_flops"]
+            flops = {d: a.flops for d, a in traced.items()}
+            if after != before:
+                raise AssertionError(f"[l] a fake trace launched a kernel: "
+                                     f"{before} -> {after}")
+            if not flops["cuda"] == flops["meta"] == real:
+                raise AssertionError(f"[l] {tag}: traced FLOPs {flops}, "
+                                     f"counted on the card {real}")
+            a = traced["cuda"]
+            tokens = shape.global_batch * (
+                shape.seq_len if shape.kind == "prefill" else 1)
+            rl = roofline_terms(
+                a, model_flops_total=cfg.model_flops_per_token("serve")
+                * tokens, n_chips=1)
+            busy_s = serve[f"{tag}_busy_ms"] / 1e3
+            wall_s = serve["prefill_s" if tag == "prefill" else "step_s"]
+            bound_s = max(rl.t_compute, rl.t_memory)
+            log(f"[l] {gpu_line()}: {tag} {QWEN_ARCH} "
+                f"({shape.global_batch}, {shape.seq_len}) on one card: "
+                f"traced {a.flops} FLOPs = {real} counted on real CUDA "
+                f"tensors in (k); {a.hbm_bytes} HBM bytes (eager model); "
+                f"t_compute {rl.t_compute} s, t_memory {rl.t_memory} s, "
+                f"max {bound_s} s; measured in (k): device busy {busy_s} s "
+                f"(share of the bound {bound_s / busy_s:.4f}), wall "
+                f"{wall_s} s")
+            out[tag] = dict(flops=a.flops, hbm_bytes=a.hbm_bytes,
+                            t_compute=rl.t_compute, t_memory=rl.t_memory,
+                            busy_s=busy_s, wall_s=wall_s)
+    log(f"[l] phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2775,6 +2942,7 @@ def main() -> int:
     jamba = phase_i(rnd)
     mesh_train = phase_j(rnd)
     serve_bundle = phase_k(rnd)
+    phase_l(serve_bundle)
     kernels = []
     for name, src, replaces, design in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",

@@ -55,11 +55,21 @@ from scipy.sparse.csgraph import dijkstra as _apsp_dijkstra
 
 from repro_torch.kernels import netcalc
 
-# The reference's TPU chip/interconnect constants and its
-# ``collective_time_s`` roofline helper are not copied: they serve the
-# roofline analysis (ROADMAP A12a) and the dry run that prices the step
-# bundles (A12c), neither of which is ported yet.  The bundles themselves,
-# train, prefill and decode, are (``train/steps.py``).
+# ---------------------------------------------------------------------------
+# Chip and interconnect rates of the roofline (``analysis/roofline.py``),
+# under the reference's names and bound to the card the port runs on: the
+# NVIDIA H100 SXM5 80GB (``chip_smoke.py`` reports it as "NVIDIA H100 80GB
+# HBM3, 700.00 W") in a DGX H100 host of 8 GPUs.  The reference's per-hop
+# latencies ``ICI_LAT`` and ``DCN_LAT`` are read by nothing and have no
+# figure with a public source here, so they are left out.
+# ---------------------------------------------------------------------------
+
+PEAK_FLOPS_BF16 = 989e12  # per GPU, dense bf16 (H100 SXM5 datasheet)
+HBM_BW = 3.35e12          # bytes/s per GPU, HBM3 (H100 SXM5 datasheet)
+ICI_BW = 450e9            # bytes/s per GPU per direction, NVLink 4 (H100
+                          # SXM5 datasheet: 900 GB/s both ways)
+DCN_BW = 400e9            # bytes/s per host across pods: 8 x 400 Gb/s
+                          # ConnectX-7 (DGX H100 datasheet)
 
 
 @dataclass
@@ -758,6 +768,17 @@ class Network:
         if self.reach_cache:
             self._lat_memo[(src, dst)] = (val,)
         return val
+
+
+# ---------------------------------------------------------------------------
+# Roofline helpers (per-chip interconnect model for the SPMD program)
+# ---------------------------------------------------------------------------
+
+
+def collective_time_s(ici_bytes_per_chip: float,
+                      dcn_bytes_per_chip: float) -> float:
+    """Lower-bound time to move the per-chip collective traffic."""
+    return ici_bytes_per_chip / ICI_BW + dcn_bytes_per_chip / DCN_BW
 
 
 def one_big_switch(hosts: list[str], *, lat_ms: float = 0.1,

@@ -98,3 +98,12 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def check_device(t, entry: str) -> None:
+    """A real tensor on a device other than the CPU and the card has no
+    kernel: raise (a fake tensor takes the operator's fake kernel)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    if t.device.type not in ("cpu", "cuda") and not isinstance(t,
+                                                               FakeTensor):
+        raise ValueError(f"{entry}: no kernel for {t.device}")

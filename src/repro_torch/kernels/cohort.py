@@ -10,7 +10,7 @@ Float64 element-wise IEEE ops only: ``pane_starts`` is bitwise
 identical to the scalar composition ``float(math.floor(et / w)) * w`` —
 ``np.floor`` and ``math.floor`` agree on every finite float64 and the
 divide / multiply are the same IEEE ops.  This is the fingerprint-safe
-backend; a float64 torch backend is future work (ROADMAP A7).
+backend; a float64 torch backend is future work (ROADMAP A8b).
 """
 from __future__ import annotations
 

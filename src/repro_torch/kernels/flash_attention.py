@@ -5,15 +5,24 @@ which replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``_fwd_kernel`` / ``flash_attention_fwd``).  The kernel source says
 what bounds it on the H100 and what its design does about that.
 
-A tensor on the CPU takes the plain version (:func:`ref.attention`); a
-CUDA tensor launches the kernel or raises — there is no fallback.
-``launches`` counts kernel launches (plain-version calls do not count).
+:func:`flash_attention_fwd` calls the operator
+``torch.ops.repro_torch.flash_attention_fwd``, whose kernels the
+dispatcher picks by device: a tensor on the CPU takes the plain version
+(:func:`ref.attention`); a CUDA tensor launches the kernel or raises —
+there is no fallback; a fake tensor (on any device) takes the fake
+kernel, which gives the output's shape and dtype only and never reaches
+the library; a real tensor on another device raises.
+Its FLOP formula (``torch.utils.flop_counter``) counts the two products of
+every (query, key) pair, the masked ones included, as the reference's
+plain attention does (``repro/models/attention.py``).  ``launches`` counts
+kernel launches (plain-version calls do not count).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, ref
 
@@ -78,11 +87,17 @@ def _rows_aligned(t) -> bool:
 def flash_attention_fwd(q, k, v, *, scale: float, causal: bool = True,
                         window: int = 0, softcap: float = 0.0):
     """q: (B, Sq, NH, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, NH, hd)."""
-    if q.device.type == "cpu":
-        return ref.attention(q, k, v, scale=scale, causal=causal,
-                             window=window, softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    _build.check_device(q, "flash_attention")
+    return torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, float(scale), bool(causal), int(window), float(softcap))
+
+
+def _plain(q, k, v, scale, causal, window, softcap):
+    return ref.attention(q, k, v, scale=scale, causal=causal,
+                         window=window, softcap=softcap)
+
+
+def _launch(q, k, v, scale, causal, window, softcap):
     _check(q, k, v)
     if q.dtype == torch.bfloat16:
         # the tensor-core path copies 16-byte runs of each row
@@ -106,3 +121,28 @@ def flash_attention_fwd(q, k, v, *, scale: float, causal: bool = True,
     global launches
     launches += 1
     return out
+
+
+def _fake(q, k, v, scale, causal, window, softcap):
+    _check(q, k, v)
+    return q.new_empty(q.shape)
+
+
+def attention_flops(q_shape, k_shape) -> int:
+    """2 products x 2 FLOPs x B x NH x Sq x Sk x hd."""
+    B, Sq, NH, hd = q_shape
+    return 4 * B * NH * Sq * k_shape[1] * hd
+
+
+_ops = torch.library.Library("repro_torch", "FRAGMENT")
+_ops.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, float scale, "
+            "bool causal, int window, float softcap) -> Tensor")
+_ops.impl("flash_attention_fwd", _plain, "CPU")
+_ops.impl("flash_attention_fwd", _launch, "CUDA")
+torch.library.register_fake("repro_torch::flash_attention_fwd", _fake,
+                            lib=_ops)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    return attention_flops(q_shape, k_shape)

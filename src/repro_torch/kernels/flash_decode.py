@@ -19,9 +19,17 @@ keeps its float32 partials (acc, m, l), with the window and ``pos`` in
 global coordinates; the ranks' partials, gathered, are merged by
 :func:`combine` (the combine kernel, over any number of partials).
 
-A tensor on the CPU takes the plain version (:func:`ref.decode`,
-:func:`ref.decode_split`, :func:`ref.combine`); a CUDA tensor launches
-the kernel or raises — there is no fallback.  ``launches`` counts
+Each entry calls its operator (``torch.ops.repro_torch.flash_decode``,
+``flash_decode_partials``, ``flash_decode_combine``), whose kernels the
+dispatcher picks by device.  A tensor on the CPU takes the plain version
+(:func:`ref.decode`, :func:`ref.decode_split`, :func:`ref.combine`); a
+CUDA tensor launches the kernel or raises — there is no fallback; a fake
+tensor takes the fake kernel, which gives shapes and dtypes only and
+never reaches the library (the partials' split count, which the card
+decides, is 1 there); a real tensor on another device raises.  The FLOP
+formulas count the two products of the query against every key of the
+cache or chunk, the masked ones included, as the reference's plain
+decode does; the combine does no product.  ``launches`` counts
 :func:`flash_decode` calls that launch the kernel (the split kernel, and
 the combine kernel after it when the cache is split);
 ``partials_launches`` and ``combine_launches`` count the other two
@@ -32,6 +40,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, ref
 
@@ -186,12 +195,18 @@ def _layout_args(k_cache, v_cache) -> tuple:
 def flash_decode(q, k_cache, v_cache, pos: int, *, scale: float,
                  window: int = 0, softcap: float = 0.0):
     """q: (B, NH, hd); caches: (B, S, KV, hd); pos: int -> (B, NH, hd)."""
-    pos = int(pos)
-    if q.device.type == "cpu":
-        return ref.decode(q, k_cache, v_cache, pos, scale=scale,
-                          window=window, softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode: no kernel for {q.device}")
+    _build.check_device(q, "flash_decode")
+    return torch.ops.repro_torch.flash_decode(
+        q, k_cache, v_cache, int(pos), float(scale), int(window),
+        float(softcap))
+
+
+def _decode_plain(q, k_cache, v_cache, pos, scale, window, softcap):
+    return ref.decode(q, k_cache, v_cache, pos, scale=scale, window=window,
+                      softcap=softcap)
+
+
+def _decode_launch(q, k_cache, v_cache, pos, scale, window, softcap):
     _check(q, k_cache, v_cache, pos)
     B, NH, hd = q.shape
     KV = k_cache.shape[2]
@@ -215,6 +230,11 @@ def flash_decode(q, k_cache, v_cache, pos: int, *, scale: float,
     return out
 
 
+def _decode_fake(q, k_cache, v_cache, pos, scale, window, softcap):
+    _check(q, k_cache, v_cache, pos)
+    return q.new_empty(q.shape)
+
+
 def partials(q, k_cache, v_cache, pos: int, *, offset: int, scale: float,
              window: int = 0, softcap: float = 0.0):
     """Float32 partials of one query token against a chunk of a cache.
@@ -227,13 +247,21 @@ def partials(q, k_cache, v_cache, pos: int, *, offset: int, scale: float,
     only (the rule of :func:`split_count` over the chunk's length), so
     every rank of a sequence split gets the same n; on the CPU n = 1.
     """
-    pos, offset = int(pos), int(offset)
-    if q.device.type == "cpu":
-        return ref.decode_split(q, k_cache, v_cache, pos, n_split=1,
-                                scale=scale, window=window, softcap=softcap,
-                                partials=True, offset=offset)[1]
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode.partials: no kernel for {q.device}")
+    _build.check_device(q, "flash_decode.partials")
+    return torch.ops.repro_torch.flash_decode_partials(
+        q, k_cache, v_cache, int(pos), int(offset), float(scale),
+        int(window), float(softcap))
+
+
+def _partials_plain(q, k_cache, v_cache, pos, offset, scale, window,
+                    softcap):
+    return ref.decode_split(q, k_cache, v_cache, pos, n_split=1,
+                            scale=scale, window=window, softcap=softcap,
+                            partials=True, offset=offset)[1]
+
+
+def _partials_launch(q, k_cache, v_cache, pos, offset, scale, window,
+                     softcap):
     _check(q, k_cache, v_cache)
     B, NH, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
@@ -257,15 +285,24 @@ def partials(q, k_cache, v_cache, pos: int, *, offset: int, scale: float,
             part[a + b:].view(n, B, NH))
 
 
+def _partials_fake(q, k_cache, v_cache, pos, offset, scale, window,
+                   softcap):
+    _check(q, k_cache, v_cache)
+    B, NH, hd = q.shape
+    f32 = dict(dtype=torch.float32)
+    return (q.new_empty((1, B, NH, hd), **f32), q.new_empty((1, B, NH), **f32),
+            q.new_empty((1, B, NH), **f32))
+
+
 def combine(acc, m, l, dtype):
     """Merge partials (acc (n, B, NH, hd), m and l (n, B, NH), float32;
     for example several ranks' :func:`partials`, gathered) by log-sum-exp
     into o (B, NH, hd) in ``dtype`` (``ref.combine``'s arithmetic)."""
-    if acc.device.type == "cpu":
-        return ref.combine(acc, m, l, dtype)
-    if acc.device.type != "cuda":
-        raise ValueError(f"flash_decode.combine: no kernel for "
-                         f"{acc.device}")
+    _build.check_device(acc, "flash_decode.combine")
+    return torch.ops.repro_torch.flash_decode_combine(acc, m, l, dtype)
+
+
+def _combine_check(acc, m, l, dtype):
     n, B, NH, hd = acc.shape
     for name, t in (("acc", acc), ("m", m), ("l", l)):
         if t.dtype != torch.float32 or not t.is_contiguous() \
@@ -279,6 +316,11 @@ def combine(acc, m, l, dtype):
     if not 1 <= n <= MAX_PARTS or hd not in HEAD_DIMS or dtype not in DTYPES:
         raise ValueError(f"flash_decode.combine: {n} partials (at most "
                          f"{MAX_PARTS}), head_dim {hd}, dtype {dtype}")
+
+
+def _combine_launch(acc, m, l, dtype):
+    _combine_check(acc, m, l, dtype)
+    n, B, NH, hd = acc.shape
     lib = _kernel()
     out = torch.empty((B, NH, hd), dtype=dtype, device=acc.device)
     with torch.cuda.device(acc.device):
@@ -290,3 +332,44 @@ def combine(acc, m, l, dtype):
     global combine_launches
     combine_launches += 1
     return out
+
+
+def _combine_fake(acc, m, l, dtype):
+    _combine_check(acc, m, l, dtype)
+    return acc.new_empty(acc.shape[1:], dtype=dtype)
+
+
+def decode_flops(q_shape, k_shape) -> int:
+    """2 products x 2 FLOPs x B x NH x S x hd (every key of the cache)."""
+    B, NH, hd = q_shape
+    return 4 * B * NH * k_shape[1] * hd
+
+
+_ops = torch.library.Library("repro_torch", "FRAGMENT")
+_ops.define("flash_decode(Tensor q, Tensor k_cache, Tensor v_cache, int pos, "
+            "float scale, int window, float softcap) -> Tensor")
+_ops.define("flash_decode_partials(Tensor q, Tensor k_cache, Tensor v_cache, "
+            "int pos, int offset, float scale, int window, float softcap) "
+            "-> (Tensor, Tensor, Tensor)")
+_ops.define("flash_decode_combine(Tensor acc, Tensor m, Tensor l, "
+            "ScalarType dtype) -> Tensor")
+for _name, _plain_fn, _launch_fn, _fake_fn in (
+        ("flash_decode", _decode_plain, _decode_launch, _decode_fake),
+        ("flash_decode_partials", _partials_plain, _partials_launch,
+         _partials_fake),
+        ("flash_decode_combine", ref.combine, _combine_launch,
+         _combine_fake)):
+    _ops.impl(_name, _plain_fn, "CPU")
+    _ops.impl(_name, _launch_fn, "CUDA")
+    torch.library.register_fake(f"repro_torch::{_name}", _fake_fn, lib=_ops)
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_decode,
+                        torch.ops.repro_torch.flash_decode_partials])
+def _flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    return decode_flops(q_shape, k_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode_combine)
+def _combine_flops(*args, out_shape=None, **kwargs) -> int:
+    return 0

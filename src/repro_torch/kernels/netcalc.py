@@ -9,7 +9,7 @@ Float64 element-wise IEEE ops only (the fingerprint-safe backend),
 bitwise identical to the scalar composition in the on-demand hop walk
 (``lat + nbytes / bw``; ``x / inf == 0.0`` reproduces the ``bw < inf``
 serialization guard exactly).  A float64 torch backend is future work
-(ROADMAP A7).
+(ROADMAP A8b).
 """
 from __future__ import annotations
 

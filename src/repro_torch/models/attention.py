@@ -5,7 +5,8 @@ Counterpart of ``repro/models/attention.py``.  Dispatch is by device:
 - a CUDA tensor goes to the hand-written kernels — prefill to
   :func:`repro_torch.kernels.ops.flash_attention`, each decode step to
   :func:`repro_torch.kernels.ops.flash_decode`.  No flag sends a CUDA
-  tensor to a plain path.
+  tensor to a plain path.  (A dry run's fake meta tensors go there too,
+  inside ``kernels.ops.card_program``: ``kernels.ops.on_card``.)
 - a CPU tensor takes the reference's XLA paths, the ones the JAX model
   runs with ``use_pallas=False``: the q-chunked ``_attend_chunk`` (or
   ``_flash_xla`` when ``cfg.attn_impl == "flash_xla"``) and the einsum
@@ -182,7 +183,7 @@ def _flash_xla(q, k, v, cfg, window: int, *, q_chunk: int = 1024,
 def full_attention(q, k, v, cfg, *, window: int = 0, q_chunk: int = 1024):
     """q: (B,S,NH,hd), k/v: (B,S,KV,hd) -> (B,S,NH,hd), causal (+window)."""
     B, S, NH, hd = q.shape
-    if q.device.type == "cuda":
+    if kops.on_card(q):
         return kops.flash_attention(q, k, v, _qk_scale(cfg), True, window,
                                     cfg.attn_softcap)
     KV = k.shape[2]
@@ -213,7 +214,7 @@ def decode_attention(q, k_cache, v_cache, pos: int, cfg, *, window: int = 0):
     B, _, NH, hd = q.shape
     KV, Smax = k_cache.shape[1], k_cache.shape[3]
     G = NH // KV
-    if q.device.type == "cuda":
+    if kops.on_card(q):
         return kops.flash_decode(
             q[:, 0], k_cache.permute(0, 3, 1, 2), v_cache.permute(0, 2, 1, 3),
             pos, scale=_qk_scale(cfg), window=window,

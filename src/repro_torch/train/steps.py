@@ -81,8 +81,8 @@ mamba, xLSTM and MoE leaves compute on whole views, as in the train step
 (ROADMAP A11c); their cache leaves are placed by their specs
 (``inner``/``heads`` on ``model``), so the decode step gathers them whole
 over ``model`` for the computation and writes back only its own chunk.
-Still to port: the roofline analysis (ROADMAP A12a) and the dry run that
-lowers these bundles (A12c).
+The dry run (``launch/dryrun.py``) traces these bundles on fake tensors
+and prices them (``analysis/``).
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """The port's packages export what the reference's export (ROADMAP C11,
 C12).
 
-- Every package of ``repro`` that the port has (all but ``analysis``,
-  ROADMAP A12a) lists the same public names in ``__all__`` in the port,
+- Every package of ``repro`` (``analysis`` since the roofline analyzer
+  was ported) lists the same public names in ``__all__`` in the port,
   apart from the port's own additions named in ``PORT_ONLY``, and each of
   the reference's names exists in the port.
 - Each name is a module where the reference's is a module, a class
@@ -27,9 +27,9 @@ import pytest
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "..", "src")
-PACKAGES = ("checkpoint", "configs", "core", "data", "distributed",
-            "kernels", "launch", "models", "obs", "optim", "runtime",
-            "sweep", "train")
+PACKAGES = ("analysis", "checkpoint", "configs", "core", "data",
+            "distributed", "kernels", "launch", "models", "obs", "optim",
+            "runtime", "sweep", "train")
 # names the port exports beyond the reference's: load_state copies a
 # reference-form state into the port's, make_opt is the reference's
 # train.steps function, exported by the port's package

@@ -118,6 +118,13 @@ def test_scan_covers_the_distribution_modules():
             "runtime/driver.py"} <= names
 
 
+def test_scan_covers_the_analysis_and_the_dry_run():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in port_files()[:-1]}
+    assert {"analysis/__init__.py", "analysis/roofline.py",
+            "analysis/program.py", "launch/dryrun.py"} <= names
+
+
 def _run_python(code: str) -> str:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
