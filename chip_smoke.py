@@ -113,6 +113,29 @@ Phases, each of which raises on failure:
          equal to the FLOPs counted on real CUDA tensors in (k) and no
          kernel launched; t_compute, t_memory and their max beside (k)'s
          measured device times.
+  (m)    the recurrent mixers split by the tensor-parallel plan, on the
+         (1, 1) ("data", "model") mesh of one NCCL rank: xlstm-125m at
+         full width and depth (12 layers, d 768, bf16 compute), one train
+         step through the mesh bundle bit for bit against the mesh-free
+         step (loss, every gradient, parameters and moments); a prefill
+         of 4 x 1024 and 8 decode steps through the serving bundles bit
+         for bit against ``Model.prefill`` / ``Model.decode_step``, the
+         plan's kinds printed, the recurrent cache leaves read and
+         written in place (their storage, no redistribution, no
+         collective on them); the same serving check of jamba-v0.1-52b
+         cut to one period (8 layers), through both kernels with their
+         launch counts; the mesh path's paired host cost (20 pairs of a
+         bundle step and a ``Model.decode_step``) of both, and with
+         ``--parent DIR`` (a checkout of the parent commit) the parent's
+         beside the change's, each in a process of its own, in the order
+         parent, change, change, parent; the emulator's torch backends
+         (``REPRO_*_BACKEND=torch``): 10**6 float64 values through
+         ``pane_starts`` and ``delay_many`` on cuda against numpy bit for
+         bit, and the Ocampo scenario of (f) at 20 users and a window
+         spec with replication under both backends, every non-wall
+         metric equal.
+
+    python3 chip_smoke.py --parent DIR   # (m) also times DIR's bundles
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -1082,6 +1105,13 @@ def ocampo(n_users: int, horizon: float, device: str):
     copied): a broker, a one-node SPE running traffic_metrics over 1 s
     windows, n_users packet generators at 20 packets/s.  Returns the
     measured ``spe_exec`` walls and the records of each window."""
+    ex = ocampo_engine(n_users, horizon, device).monitor.events_of(
+        "spe_exec")
+    return [e["wall"] for e in ex], [e["records"] for e in ex]
+
+
+def ocampo_engine(n_users: int, horizon: float, device: str):
+    """The Ocampo scenario's ``Engine``, run to ``horizon``."""
     from repro_torch.core import Engine, PipelineSpec
     spec = PipelineSpec()
     spec.add_switch("s1")
@@ -1097,9 +1127,8 @@ def ocampo(n_users: int, horizon: float, device: str):
         spec.add_producer(h, "PACKET", topic="pkts", ratePps=20.0,
                           pktBytes=256)
     eng = Engine(spec, seed=n_users)
-    mon = eng.run(until=horizon)
-    ex = mon.events_of("spe_exec")
-    return [e["wall"] for e in ex], [e["records"] for e in ex]
+    eng.run(until=horizon)
+    return eng
 
 
 def phase_f() -> None:
@@ -2530,28 +2559,15 @@ def phase_k1() -> dict:
                 raise AssertionError(f"[k] cache {path} at pos {pos} "
                                      "differs from Model.decode_step's")
     d_peak = torch.cuda.max_memory_allocated() / 2**30
-    # the mesh path's host cost: K_PAIRS pairs of one bundle step and one
-    # Model.decode_step at the last position, each pair in the other
-    # order than the one before, on the same device work
-    runs = {"bundle": lambda: db.step_fn(params, cache, tok, S - 1),
-            "plain": lambda: model.decode_step(plain, tok, S - 1)}
-    pair_walls = {"bundle": [], "plain": []}
-    for i in range(K_PAIRS):
-        for name in (("bundle", "plain") if i % 2 else ("plain", "bundle")):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            runs[name]()
-            torch.cuda.synchronize()
-            pair_walls[name].append(time.perf_counter() - t0)
-    diffs = [a - b for a, b in zip(*pair_walls.values())]
-    q1, mid, q3 = statistics.quantiles(diffs, n=4)
+    # the mesh path's host cost at the last position
+    host = paired_host_cost(db, params, cache, model, plain, tok, S - 1,
+                            K_PAIRS)
     log(f"[k] mesh path's host cost, {K_PAIRS} alternating pairs at pos "
-        f"{S - 1}: bundle step median "
-        f"{statistics.median(pair_walls['bundle'])} s, Model.decode_step "
-        f"{statistics.median(pair_walls['plain'])} s; "
-        f"bundle minus plain per pair: median {mid} s, quartiles {q1} / "
-        f"{q3} s; bundle faster in "
-        f"{sum(d < 0 for d in diffs)} of {K_PAIRS} pairs")
+        f"{S - 1}: bundle step median {host['bundle_s']} s, "
+        f"Model.decode_step {host['plain_s']} s; bundle minus plain per "
+        f"pair: median {host['diff_s']} s, quartiles {host['diff_q1_s']} / "
+        f"{host['diff_q3_s']} s; bundle faster in {host['faster']} of "
+        f"{K_PAIRS} pairs")
     if launches != [(cfg.n_layers, 0, 0, 0)] * K_STEPS:
         raise AssertionError(f"[k] decode launches per step (flash_decode, "
                              f"flash_attention, partials, combine) "
@@ -2918,6 +2934,569 @@ def phase_l(serve: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# (m) the recurrent mixers through the mesh bundles; the emulator's torch
+# backends on the card
+# ---------------------------------------------------------------------------
+
+M_TRAIN_B, M_TRAIN_S = 4, 512   # xlstm-125m's train step through the mesh
+M_B, M_S, M_STEPS = 4, 1024, 8  # prefill batch x seq, then decode steps
+M_PAIRS = 20                    # alternating bundle / Model.decode_step
+M_DEPTH = {XLSTM: None, JAMBA: JAMBA_LAYERS}    # None: every layer
+M_KINDS = {XLSTM: {"mlstm", "slstm", "slstm_ffn", "vocab"},
+           JAMBA: {"ffn", "heads", "kv_heads", "mamba", "vocab"}}
+M_BACKEND_N = 1_000_000         # float64 values through each backend
+M_PANES = (0.7, 1e-3, 3.0e5)    # pane widths (s)
+M_NBYTES = (0, 1500, 2**40 + 3)
+PARENT = None   # --parent DIR: a checkout of the parent commit, timed too
+
+
+def m_config(arch):
+    """``arch`` at full width, cut to M_DEPTH[arch] layers."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    n = M_DEPTH[arch]
+    return dataclasses.replace(cfg, n_layers=n) if n else cfg
+
+
+def local_tree(cache):
+    """A cache of DTensors as its local tensors (the same storage)."""
+    return [{n: {"mixer": {k: t.to_local() for k, t in lc["mixer"].items()}}
+             for n, lc in gc.items()} for gc in cache]
+
+
+def clone_tree(cache):
+    return [{n: {"mixer": {k: t.clone() for k, t in lc["mixer"].items()}}
+             for n, lc in gc.items()} for gc in cache]
+
+
+def decode_cache(model, prefill_cache, shardings):
+    """The decode bundle's cache of M_S + M_STEPS positions in the
+    config's cache dtype with the prefill's spliced in, placed by
+    ``shardings``, and a copy of it for ``Model.decode_step``."""
+    from repro_torch.core.spe import _merge_prefill_cache
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.models.params import dtype_of
+    full = _merge_prefill_cache(
+        model.init_cache(M_B, M_S + M_STEPS,
+                         dtype_of(model.cfg.cache_dtype)),
+        prefill_cache, M_S)
+    plain = clone_tree(full)
+    placed = [{n: {"mixer": {k: distribute(t, shardings[i][n]["mixer"][k])
+                             for k, t in lc["mixer"].items()}}
+               for n, lc in gc.items()} for i, gc in enumerate(full)]
+    return placed, plain
+
+
+def watch_states(cache):
+    """During one decode step: whether the tensors the step computes with
+    (``_ServeMesh.compute_cache``) are each recurrent cache leaf's own
+    storage, whether the leaf keeps it, which leaves were redistributed
+    (a DTensor gather), which leaves' storage a collective touched, and
+    every collective issued."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+    from repro_torch.train import steps
+
+    class Watch(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.leaves = {f"{g}/{layer}/{n}": t for g, gc in
+                           enumerate(cache) for layer, lc in gc.items()
+                           for n, t in lc["mixer"].items()
+                           if n not in ("k", "v")}
+            self.ptrs = {k: t.to_local().data_ptr()
+                         for k, t in self.leaves.items()}
+            self.read, self.redistributed, self.touched = {}, set(), set()
+            self.collectives = 0
+
+        def __enter__(self):
+            self.saved = (steps._ServeMesh.compute_cache,
+                          DTensor.redistribute)
+            ids = {id(t): k for k, t in self.leaves.items()}
+
+            def compute_cache(sv, c):
+                out = self.saved[0](sv, c)
+                for k in self.leaves:
+                    g, layer, n = k.split("/")
+                    self.read[k] = (out[int(g)][layer]["mixer"][n]
+                                    .data_ptr() == self.ptrs[k])
+                return out
+
+            def redistribute(dt, *a, **kw):
+                if id(dt) in ids:
+                    self.redistributed.add(ids[id(dt)])
+                return self.saved[1](dt, *a, **kw)
+
+            steps._ServeMesh.compute_cache = compute_cache
+            DTensor.redistribute = redistribute
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            steps._ServeMesh.compute_cache, DTensor.redistribute = \
+                self.saved
+            return super().__exit__(*exc)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            if func.namespace in ("c10d", "_c10d_functional"):
+                self.collectives += 1
+                mine = {t.data_ptr() for t in tree_flatten((args, kwargs))[0]
+                        if isinstance(t, torch.Tensor)}
+                self.touched |= {k for k, p in self.ptrs.items()
+                                 if p in mine}
+            return func(*args, **(kwargs or {}))
+
+        def check(self, tag):
+            kept = all(t.to_local().data_ptr() == self.ptrs[k]
+                       for k, t in self.leaves.items())
+            if not (self.leaves and kept and all(self.read.values())
+                    and self.read.keys() == self.leaves.keys()
+                    and not self.redistributed and not self.touched):
+                raise AssertionError(
+                    f"{tag} recurrent cache leaves not read in place: read "
+                    f"{self.read}, kept {kept}, redistributed "
+                    f"{sorted(self.redistributed)}, touched by a "
+                    f"collective {sorted(self.touched)}")
+            return len(self.leaves), self.collectives
+
+    return Watch()
+
+
+def paired_host_cost(db, params, cache, model, plain, tok, pos,
+                     pairs: int = M_PAIRS) -> dict:
+    """``pairs`` pairs of one decode bundle step and one
+    ``Model.decode_step`` at ``pos``, each pair in the other order than
+    the one before, on the same device work: the medians of each and of
+    the paired differences (the mesh path's host cost), and the pairs in
+    which the bundle was faster."""
+    import torch
+    runs = {"bundle": lambda: db.step_fn(params, cache, tok, pos),
+            "plain": lambda: model.decode_step(plain, tok, pos)}
+    walls = {"bundle": [], "plain": []}
+    for i in range(pairs):
+        for name in (("bundle", "plain") if i % 2 else ("plain", "bundle")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    diffs = [a - b for a, b in zip(walls["bundle"], walls["plain"])]
+    q1, mid, q3 = statistics.quantiles(diffs, n=4)
+    return dict(bundle_s=statistics.median(walls["bundle"]),
+                plain_s=statistics.median(walls["plain"]), diff_s=mid,
+                diff_q1_s=q1, diff_q3_s=q3,
+                faster=sum(d < 0 for d in diffs))
+
+
+def m_serve(arch: str, model, mesh) -> dict:
+    """A prefill of M_B x M_S and M_STEPS decode steps of ``arch``
+    through the prefill and decode bundles on ``mesh``, each bit for bit
+    against ``Model.prefill`` / ``Model.decode_step`` on the same
+    parameters (the decode on a copy of the cache); the recurrent cache
+    leaves read in place; the kernels' launches; the paired host cost."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.train import make_step_bundle
+    from repro_torch.train.steps import place_params
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    cfg = model.cfg
+    pb = make_step_bundle(cfg, ShapeCfg("p", M_S, M_B, "prefill"), mesh)
+    db = make_step_bundle(cfg, ShapeCfg("d", M_S + M_STEPS, M_B, "decode"),
+                          mesh)
+    if not pb.tp.kinds == db.tp.kinds == M_KINDS[arch]:
+        raise AssertionError(f"[m] {arch} tensor-parallel kinds "
+                             f"{pb.tp.kinds} / {db.tp.kinds}, expected "
+                             f"{M_KINDS[arch]}")
+    params = place_params(cfg, {k: p.detach() for k, p in
+                                model.named_parameters()},
+                          pb.in_shardings[0])
+    g = torch.Generator(device=DEV).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (M_B, M_S), generator=g,
+                         device=DEV)
+    fa.launches = fd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pb.step_fn(params, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    p_launches = {"flash_attention": fa.launches,
+                  "flash_decode": fd.launches}
+    t0 = time.perf_counter()
+    want_logits, want_cache = model.prefill(toks)
+    torch.cuda.synchronize()
+    plain_prefill_s = time.perf_counter() - t0
+    if not torch.equal(logits.to_local(), want_logits):
+        raise AssertionError(f"[m] {arch}: the prefill bundle's logits "
+                             "differ from Model.prefill's")
+    bad = tree_equal(cache, want_cache)
+    if bad:
+        raise AssertionError(f"[m] {arch}: prefill cache leaves differ: "
+                             f"{bad[:4]}")
+    if not bool(torch.isfinite(want_logits).all()):
+        raise AssertionError(f"[m] {arch}: non-finite prefill logits")
+    n_leaves = len(list(tree_items(cache)))
+    dcache, plain = decode_cache(model, local_tree(cache),
+                                 db.in_shardings[1])
+    del cache, want_cache, logits, want_logits
+    walls, d_launches, seen = [], [], None
+    for pos in range(M_S, M_S + M_STEPS):
+        tok = torch.randint(0, cfg.vocab_size, (M_B, 1), generator=g,
+                            device=DEV)
+        fa.launches = fd.launches = 0
+        watch = watch_states(dcache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with watch:
+            logits, dcache = db.step_fn(params, dcache, tok, pos)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        d_launches.append({"flash_attention": fa.launches,
+                           "flash_decode": fd.launches})
+        seen = watch.check(f"[m] {arch} decode at pos {pos}:")
+        want, plain = model.decode_step(plain, tok, pos)
+        if not torch.equal(logits.to_local(), want):
+            raise AssertionError(f"[m] {arch}: decode logits at pos {pos} "
+                                 "differ from Model.decode_step's")
+        bad = tree_equal(dcache, plain)
+        if bad:
+            raise AssertionError(f"[m] {arch}: cache leaves after the "
+                                 f"decode at pos {pos} differ: {bad[:4]}")
+    host = paired_host_cost(db, params, dcache, model, plain, tok,
+                            M_S + M_STEPS - 1)
+    n_attn = sum(layer.mixer in ("attn", "attn_local")
+                 for layer in cfg.layers())
+    want_p = {"flash_attention": n_attn, "flash_decode": 0}
+    want_d = {"flash_attention": 0, "flash_decode": n_attn}
+    if p_launches != want_p or d_launches != [want_d] * M_STEPS:
+        raise AssertionError(f"[m] {arch}: launches prefill {p_launches} "
+                             f"(expected {want_p}), decode {d_launches} "
+                             f"(expected {want_d} a step)")
+    log(f"[m] {gpu_line()}: {arch} ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.compute_dtype} compute) through the prefill "
+        f"and decode bundles on the (1, 1) mesh, plan {sorted(pb.tp.kinds)}"
+        f": prefill ({M_B}, {M_S}) {prefill_s:.3f} s (Model.prefill "
+        f"{plain_prefill_s:.3f} s), logits and {n_leaves} cache leaves "
+        f"equal Model.prefill's bit for bit; {M_STEPS} decode steps at pos "
+        f"{M_S}-{M_S + M_STEPS - 1}, wall {walls} s, logits and every cache "
+        f"leaf equal Model.decode_step's bit for bit; the {seen[0]} "
+        f"recurrent cache leaves read and written in place (same "
+        f"data_ptr, none redistributed, no collective on them; "
+        f"{seen[1]} collectives in a step); launches prefill {p_launches}, "
+        f"a decode step {d_launches[0]}")
+    log(f"[m] {gpu_line()}: {arch} mesh path's host cost, {M_PAIRS} "
+        f"alternating pairs at pos {M_S + M_STEPS - 1}: bundle step median "
+        f"{host['bundle_s']} s, Model.decode_step {host['plain_s']} s; "
+        f"bundle minus plain per pair: median {host['diff_s']} s, quartiles "
+        f"{host['diff_q1_s']} / {host['diff_q3_s']} s")
+    del dcache, plain, params
+    return dict(prefill_s=prefill_s, plain_prefill_s=plain_prefill_s,
+                walls=walls, host=host,
+                launches={k: p_launches[k] + sum(d[k] for d in d_launches)
+                          for k in p_launches})
+
+
+def m_train() -> dict:
+    """One xlstm-125m train step at M_TRAIN_B x M_TRAIN_S through the mesh
+    bundle on the (1, 1) mesh against the mesh-free step from the same
+    state and batch: the loss, every gradient (as ``_accumulate`` returns
+    them), every parameter and moment after the step, bit for bit."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import make_step_bundle, steps
+    from repro_torch.train.steps import full_state
+    cfg = m_config(XLSTM)
+    shape = ShapeCfg("t", M_TRAIN_S, M_TRAIN_B, "train")
+    mb = make_step_bundle(cfg, shape, make_mesh((1, 1), ("data", "model"),
+                                                DEV))
+    pb = make_step_bundle(cfg, shape)
+    if mb.tp.kinds != M_KINDS[XLSTM]:
+        raise AssertionError(f"[m] train plan {mb.tp.kinds}")
+    states = [b.init_fn(torch.Generator(device=DEV).manual_seed(0))
+              for b in (mb, pb)]
+    g = torch.Generator(device=DEV).manual_seed(6)
+    batch = {k: torch.randint(0, cfg.vocab_size, (M_TRAIN_B, M_TRAIN_S),
+                              generator=g, device=DEV)
+             for k in ("inputs", "labels")}
+    grads, walls, losses = [], [], []
+    saved = steps._accumulate
+
+    def accumulate(*a):
+        out = saved(*a)
+        grads.append({k: t.detach().clone() for k, t in out[0].items()})
+        return out
+
+    steps._accumulate = accumulate
+    try:
+        for b, st in zip((mb, pb), states):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = b.step_fn(st, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"])
+    finally:
+        steps._accumulate = saved
+    if not torch.equal(*losses) or not bool(torch.isfinite(losses[0])):
+        raise AssertionError(f"[m] train losses {losses}")
+    bad = [k for k in grads[1] if not torch.equal(grads[0][k], grads[1][k])]
+    bad += tree_equal(full_state(states[0]), full_state(states[1]))
+    if bad or len(grads[1]) != len(list(states[1]["params"].parameters())):
+        raise AssertionError(f"[m] train step: {bad[:6]} differ")
+    log(f"[m] {gpu_line()}: {XLSTM} full width and depth ({cfg.n_layers} "
+        f"layers, d {cfg.d_model}) one train step ({M_TRAIN_B}, "
+        f"{M_TRAIN_S}) through the mesh bundle on the (1, 1) mesh, plan "
+        f"{sorted(mb.tp.kinds)}: loss {float(losses[0])}, {len(grads[1])} "
+        f"gradients, every parameter and both moments equal the mesh-free "
+        f"step's bit for bit; walls mesh {walls[0]:.3f} s, mesh-free "
+        f"{walls[1]:.3f} s")
+    return dict(step_s=walls[0], plain_step_s=walls[1])
+
+
+def window_replication_spec():
+    """Fused fetch into a tumbling event-time window, the input topic
+    replicated over three brokers (the fan-out is ``delay_many``'s
+    cohort), one of them slow for a while (``extra_s``); the spec of
+    tests/test_torch_backends.py."""
+    from repro_torch.core import PipelineSpec
+    spec = PipelineSpec(delivery="poll")
+    spec.add_switch("s1")
+    for h in ["b", "b2", "b3", "p1", "p2", "w", "c"]:
+        spec.add_host(h).add_link(h, "s1", lat=1.0, bw=1000.0)
+    for b in ("b", "b2", "b3"):
+        spec.add_broker(b)
+    spec.add_topic("in", leader="b", partitions=2, replication=3)
+    spec.add_topic("agg", leader="b")
+    spec.add_fault(1.0, "slow_host", "b2", duration=10.0, delay_s=0.02)
+    for p in ("p1", "p2"):
+        spec.add_producer(p, "SYNTHETIC", topics=["in"], rateKbps=80.0,
+                          msgSize=200, totalMessages=150, etJitterS=0.3)
+    spec.add_spe("w", query="identity", inTopic="in", outTopic="agg",
+                 timeMode="event", window=1.0, allowedLateness=0.2,
+                 keyField="src", agg="count", pollInterval=0.5)
+    spec.add_consumer("c", "METRICS", topic="agg", pollInterval=0.1)
+    return spec
+
+
+class torch_backends:
+    """Both emulator variables set to ``torch`` (the card), the torch
+    backends' calls counted; restored on exit."""
+
+    def __enter__(self):
+        import os
+        from repro_torch.kernels import cohort, netcalc
+        self.env = {v: os.environ.get(v) for v in
+                    ("REPRO_COHORT_BACKEND", "REPRO_NETCALC_BACKEND")}
+        os.environ.update({v: "torch" for v in self.env})
+        self.calls = {"pane_starts": 0, "delay_many": 0}
+        self.saved = (cohort._pane_starts_torch, netcalc._delay_many_torch)
+
+        def pane(*a):
+            self.calls["pane_starts"] += 1
+            return self.saved[0](*a)
+
+        def delay(*a):
+            self.calls["delay_many"] += 1
+            return self.saved[1](*a)
+
+        cohort._pane_starts_torch, netcalc._delay_many_torch = pane, delay
+        return self
+
+    def __exit__(self, *exc):
+        import os
+        from repro_torch.kernels import cohort, netcalc
+        cohort._pane_starts_torch, netcalc._delay_many_torch = self.saved
+        for v, val in self.env.items():
+            if val is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = val
+
+
+def phase_m4() -> dict:
+    """The emulator's torch backends (ROADMAP A8b) on the card: M_BACKEND_N
+    float64 values through ``pane_starts`` and ``delay_many`` (``inf``
+    bandwidths, ``extra_s`` unset and set) bit for bit against numpy; the
+    Ocampo scenario of (f) at 20 users and a fused-fetch window spec with
+    replication, both variables at ``torch``, giving numpy's non-wall
+    metrics exactly."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Engine
+    from repro_torch.kernels import cohort, netcalc
+    rng = np.random.default_rng(7)
+    n = M_BACKEND_N
+    ets = np.concatenate([rng.uniform(-50, 100, n // 2),
+                          rng.uniform(0, 1e9, n - n // 2)])
+    lat, bw = rng.uniform(0, 1, n), rng.uniform(1, 1e11, n)
+    bw[::7] = np.inf
+    extra = rng.uniform(0, 1e-3, n)
+    walls = {"torch": 0.0, "numpy": 0.0}
+    checked = 0
+
+    def run(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        return out, time.perf_counter() - t0
+
+    for size in M_PANES:
+        got, t = run(cohort._pane_starts_torch, ets, size, "torch")
+        want, u = run(cohort._pane_starts_np, ets, size)
+        walls["torch"] += t
+        walls["numpy"] += u
+        checked += 1
+        if not np.array_equal(got.view(np.uint64), want.view(np.uint64)):
+            raise AssertionError(f"[m] pane_starts at {size} s: "
+                                 f"{int((got != want).sum())} of {n} "
+                                 "differ from numpy's bits")
+    for nb in M_NBYTES:
+        for ex in (None, extra):
+            got, t = run(netcalc._delay_many_torch, lat, bw, nb, ex, "torch")
+            want, u = run(netcalc._delay_many_np, lat, bw, nb, ex)
+            walls["torch"] += t
+            walls["numpy"] += u
+            checked += 1
+            if not np.array_equal(got.view(np.uint64),
+                                  want.view(np.uint64)):
+                raise AssertionError(
+                    f"[m] delay_many of {nb} bytes, extra "
+                    f"{ex is not None}: {int((got != want).sum())} of {n} "
+                    "differ from numpy's bits")
+    log(f"[m] {gpu_line()}: pane_starts ({len(M_PANES)} widths) and "
+        f"delay_many ({len(M_NBYTES)} sizes, extra_s unset and set) of "
+        f"{n} float64 values on cuda equal numpy's bit for bit ({checked} "
+        f"calls; every 7th bandwidth inf); walls with the copies to and "
+        f"from the card {walls['torch']:.3f} s, numpy {walls['numpy']:.3f}"
+        f" s")
+    out = {}
+    for tag, build in (("ocampo 20 users", lambda: None),
+                       ("window + replication", window_replication_spec)):
+        def engine(build=build):
+            if build() is None:
+                eng = ocampo_engine(20, OCAMPO_HORIZON, DEV)
+            else:
+                eng = Engine(build(), seed=5)
+                eng.run(until=30.0)
+            return wall_free(eng.metrics()), eng.n_events
+
+        want = engine()
+        with torch_backends() as tb:
+            got = engine()
+        if got != want:
+            raise AssertionError(f"[m] {tag}: engine metrics under the "
+                                 "torch backends differ from numpy's")
+        if tag.startswith("window") and not all(tb.calls.values()):
+            raise AssertionError(f"[m] {tag}: backend calls {tb.calls}")
+        out[tag] = tb.calls
+        log(f"[m] {tag} with REPRO_COHORT_BACKEND=REPRO_NETCALC_BACKEND="
+            f"torch: every non-wall metric and the event count ({got[1]}) "
+            f"equal numpy's; torch backend calls on the card {tb.calls}")
+    return out
+
+
+def host_cost(arch: str) -> dict:
+    """The mesh path's paired host cost of ``arch`` (M_DEPTH cut) on the
+    (1, 1) mesh of one NCCL rank, with whatever ``repro_torch`` is first
+    on ``sys.path``: a ``Model.prefill`` of M_B x M_S spliced into the
+    decode cache, then :func:`paired_host_cost` at the last decode
+    position.  Only names the parent commit has too."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import make_step_bundle
+    from repro_torch.train.steps import place_params
+    with nccl_rank():
+        cfg = m_config(arch)
+        model = Model(cfg, device=DEV).init_params(
+            torch.Generator(device=DEV).manual_seed(0))
+        db = make_step_bundle(cfg, ShapeCfg("d", M_S + M_STEPS, M_B,
+                                            "decode"),
+                              make_mesh((1, 1), ("data", "model"), DEV))
+        params = place_params(cfg, {k: p.detach() for k, p in
+                                    model.named_parameters()},
+                              db.in_shardings[0])
+        g = torch.Generator(device=DEV).manual_seed(5)
+        toks = torch.randint(0, cfg.vocab_size, (M_B, M_S), generator=g,
+                             device=DEV)
+        _, prefill_cache = model.prefill(toks)
+        cache, plain = decode_cache(model, prefill_cache,
+                                    db.in_shardings[1])
+        tok = torch.randint(0, cfg.vocab_size, (M_B, 1), generator=g,
+                            device=DEV)
+        for pos in range(M_S, M_S + M_STEPS):       # warm both paths
+            db.step_fn(params, cache, tok, pos)
+            model.decode_step(plain, tok, pos)
+        return paired_host_cost(db, params, cache, model, plain, tok,
+                                M_S + M_STEPS - 1)
+
+
+def phase_m3() -> dict:
+    """With ``--parent DIR``: :func:`host_cost` of both archs in
+    processes of their own, on the parent's ``src`` and this checkout's,
+    in the order parent, change, change, parent."""
+    import os
+    out = {}
+    for arch in M_DEPTH:
+        runs = []
+        for which, src in (("parent", PARENT), ("change", ROOT),
+                           ("change", ROOT), ("parent", PARENT)):
+            r = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--host-cost",
+                 arch, "--src", str(Path(src) / "src")],
+                env=dict(os.environ), capture_output=True, text=True,
+                timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"[m] host cost of {arch} on the "
+                                     f"{which}: {r.stderr[-3000:]}")
+            runs.append((which, json.loads(
+                r.stdout.strip().splitlines()[-1])))
+        out[arch] = runs
+        log(f"[m] {gpu_line()}: {arch} mesh path's host cost (bundle minus "
+            f"Model.decode_step, median of {M_PAIRS} pairs) in the order "
+            f"parent, change, change, parent: "
+            f"{[(w, h['diff_s']) for w, h in runs]} s; bundle steps "
+            f"{[(w, h['bundle_s']) for w, h in runs]} s")
+    return out
+
+
+def phase_m() -> dict:
+    """The slice's path: xlstm-125m (its mLSTM and sLSTM split by the
+    plan) trained and served, and jamba-v0.1-52b cut to one period (its
+    mamba split) served, through the mesh bundles on the (1, 1) mesh of
+    one NCCL rank, bit for bit against the mesh-free paths; the parent's
+    host cost beside the change's (with --parent); the emulator's torch
+    backends on the card."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    t0 = time.perf_counter()
+    out = {}
+    with nccl_rank():
+        out["train"] = m_train()
+        mesh = make_mesh((1, 1), ("data", "model"), DEV)
+        for arch in M_DEPTH:
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = Model(m_config(arch), device=DEV).init_params(
+                torch.Generator(device=DEV).manual_seed(0))
+            out[arch] = m_serve(arch, model, mesh)
+            del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if PARENT:
+        out["parent"] = phase_m3()
+    out["backends"] = phase_m4()
+    log(f"[m] phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2943,6 +3522,7 @@ def main() -> int:
     mesh_train = phase_j(rnd)
     serve_bundle = phase_k(rnd)
     phase_l(serve_bundle)
+    recurrent = phase_m()
     kernels = []
     for name, src, replaces, design in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -2978,6 +3558,10 @@ def main() -> int:
             sb["serve_bundle_partials"] = {
                 "launches": serve_bundle["launches"]["partials"],
                 **serve_bundle["partials"]}
+        # jamba cut to one period through the bundles with its mamba mixers
+        # split (m): a prefill and the decode steps
+        sb["serve_bundle_jamba"] = {
+            "launches": recurrent[JAMBA]["launches"][name]}
         # serving the MoE (h) and hybrid (i) paths: their launches, and the
         # kernel checked and timed at their shapes (hd=64 G=3; hd=128 G=4)
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -3001,4 +3585,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # --host-cost ARCH --src DIR: phase m's paired host cost of ARCH with
+    # the repro_torch of DIR (a parent commit's), one JSON line
+    if "--host-cost" in sys.argv:
+        sys.path.insert(0, sys.argv[sys.argv.index("--src") + 1])
+        print(json.dumps(host_cost(sys.argv[sys.argv.index("--host-cost")
+                                            + 1])))
+        sys.exit(0)
+    if "--parent" in sys.argv:
+        PARENT = sys.argv[sys.argv.index("--parent") + 1]
     sys.exit(main())

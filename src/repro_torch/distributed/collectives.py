@@ -9,7 +9,10 @@ gradients between ranks.  Two cases need their own gradients:
   the work is the sum of the ranks' parts, and that of a summed output is
   the cotangent itself: Megatron's f (:func:`copy_to`, :class:`_CopyTo`)
   and g (:func:`reduce_from`, :class:`_ReduceFrom`).  An all-gather's
-  gradient is the rank's own columns (:class:`_GatherCols`).  The
+  gradient is the rank's own columns (:func:`gather_cols`), and a
+  reduce-scatter's the ranks' columns gathered (:func:`reduce_scatter_cols`:
+  a row-parallel product whose output columns are split, as the mLSTM's
+  q, k and v by heads).  The
   vocab-parallel cross-entropy (:func:`vocab_parallel_ce`) reduces its
   max, sum and gold logit over the group and needs no collective in its
   backward pass.
@@ -75,17 +78,39 @@ class _ReduceFrom(torch.autograd.Function):
 
 
 class _GatherCols(torch.autograd.Function):
-    """The ranks' column blocks side by side, in rank order; the gradient
-    is this rank's block."""
+    """The ranks' blocks of the last dim side by side, in rank order; the
+    gradient is this rank's block."""
 
     @staticmethod
     def forward(ctx, x, group):
-        ctx.lo, ctx.n = dist.get_rank(group) * x.shape[1], x.shape[1]
-        return gathered(x, group, 1)
+        ctx.lo, ctx.n = dist.get_rank(group) * x.shape[-1], x.shape[-1]
+        return gathered(x, group, x.dim() - 1)
 
     @staticmethod
     def backward(ctx, g):
-        return g[:, ctx.lo:ctx.lo + ctx.n], None
+        return g[..., ctx.lo:ctx.lo + ctx.n], None
+
+
+class _ReduceScatterCols(torch.autograd.Function):
+    """The sum over the group, of which this rank keeps its block of the
+    last dim (block r of n equal blocks); the gradient is the ranks'
+    blocks side by side."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = dist.get_world_size(group)
+        C = x.shape[-1]
+        # (..., n, C/n) -> (n, rows, C/n): block r of every row together
+        blocks = x.reshape(-1, n, C // n).transpose(0, 1).contiguous()
+        out = torch.empty(blocks.shape[1:], dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, blocks.reshape(-1, C // n),
+                                   group=group)
+        return out.reshape(*x.shape[:-1], C // n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gathered(g.contiguous(), ctx.group, g.dim() - 1), None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -130,6 +155,19 @@ def copy_to(x, group):
 def reduce_from(x, group):
     """Megatron's g, after a row-parallel product."""
     return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def gather_cols(x, group):
+    """The ranks' blocks of ``x``'s last dim side by side, the gradient
+    this rank's block: where each rank computes its columns of a value
+    that every rank then uses whole."""
+    return x if group is None else _GatherCols.apply(x, group)
+
+
+def reduce_scatter_cols(x, group):
+    """This rank's block of the last dim of the sum of ``x`` over the
+    group: a row-parallel product whose output columns are split."""
+    return x if group is None else _ReduceScatterCols.apply(x, group)
 
 
 class _VocabParallelCE(torch.autograd.Function):

@@ -23,8 +23,12 @@ is explicit SPMD already (one process per device, collectives written out,
 
 Tensor parallelism over ``model`` (:func:`tp_plan`) is what XLA derives
 for the reference from the same specs: the dense layers whose heads,
-``d_ff`` or vocabulary split evenly over ``model`` compute on each rank's
+``d_ff`` or vocabulary split evenly over ``model``, and the mamba, mLSTM
+and sLSTM mixers whose ``d_inner`` and heads do, compute on each rank's
 chunk of their leaves (Megatron's column- and row-parallel products).
+The MoE experts without expert parallelism, the shared expert and
+``seq_shard`` still compute whole on every ``model`` rank (ROADMAP
+A11c).
 The mesh step hands the plan to the model through
 :class:`activation_sharding`, and the layers ask :func:`current_tp`.
 The serving bundles also tell the attention layers whether the decode
@@ -38,8 +42,10 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed.collectives import gathered
 from repro_torch.launch.mesh import mesh_axis_sizes
 
 
@@ -287,32 +293,54 @@ def aliases(t, placements=None) -> bool:
 # Tensor parallelism over "model"
 # ---------------------------------------------------------------------------
 
-# what splits each kind of leaf over "model": its logical axis
-_TP_AXIS = {"heads": "q_features", "kv_heads": "kv_features", "ffn": "ffn",
-            "vocab": "vocab"}
+# what splits each kind of leaf over "model": its logical axes (the first
+# of them in a leaf's axes is the dim split)
+_TP_AXIS = {"heads": ("q_features",), "kv_heads": ("kv_features",),
+            "ffn": ("ffn",), "vocab": ("vocab",), "mamba": ("inner",),
+            "mlstm": ("inner", "heads"), "slstm": ("inner", "heads"),
+            "slstm_ffn": ("ffn",)}
+# the leaves whose split dim is several gate blocks side by side ([x | z],
+# [i | f | z | o]): stored as a contiguous chunk of the whole dim, they
+# compute on each block's chunk (see TPPlan)
+_GATES = {"mamba": {"in_proj": 2}, "mlstm": {"up_proj": 2},
+          "slstm": {"w": 4, "b": 4}}
 
 
 @dataclass(frozen=True)
 class TPPlan:
-    """Which dense layers compute on this rank's ``model`` chunk.
+    """Which layers compute on this rank's ``model`` chunk.
 
     ``kinds``: of "heads" (``wq``/``bq`` column-parallel by heads, ``wo``
     row-parallel), "kv_heads" (``wk``/``wv``/``bk``/``bv`` column-parallel;
     without it a head-parallel layer computes the KV heads its query heads
     read from the whole leaves), "ffn" (``w_up``/``w_gate`` column-,
-    ``w_down`` row-parallel) and "vocab" (``embedding`` by rows and
-    ``unembed`` by columns).  ``views``: {leaf key: the dim of the leaf
-    split over ``model``} for the leaves of those kinds; every other
-    leaf's compute view is its whole value."""
+    ``w_down`` row-parallel), "vocab" (``embedding`` by rows and
+    ``unembed`` by columns), and the recurrent mixers: "mamba" (its
+    ``d_inner`` channels), "mlstm" (its heads and their ``d_inner``
+    features), "slstm" (its heads) and "slstm_ffn" (the sLSTM block's
+    post-FFN by its width, column- then row-parallel; it splits on its own
+    count, so it may split where "slstm" does not, and the reverse).
+    ``views``: {leaf key: the dim of the leaf split over ``model``} for
+    the leaves of those kinds; every other leaf's compute view is its
+    whole value.  ``gates``: {leaf key: blocks} for the leaves of
+    ``views`` whose split dim is that many gate blocks side by side
+    (mamba's ``in_proj`` [x | z], the mLSTM's ``up_proj`` [x | z], the
+    sLSTM's ``w`` and ``b`` [i | f | z | o]): they are stored as the
+    reference stores them, rank r holding the r-th contiguous chunk of
+    the whole dim, but rank r computes on the r-th chunk of each block
+    (:func:`gate_view`), and its gradient goes back to the storage chunk
+    (:func:`gate_chunk`).  On one rank the two are the same."""
 
     size: int                   # ranks on "model" (0: no such axis)
     kinds: frozenset
     views: dict
+    gates: dict
 
     def placements(self, key: str, names) -> Optional[list]:
-        """The DTensor placements of ``key``'s compute view on a mesh
+        """The DTensor placements of ``key``'s storage chunk on a mesh
         with axes ``names``: its ``model`` chunk, whole over the other
-        axes; None for a whole leaf."""
+        axes; None for a whole leaf.  For a leaf of ``gates`` this is not
+        its compute view (see :func:`gate_view`)."""
         d = self.views.get(key)
         if d is None:
             return None
@@ -322,50 +350,108 @@ class TPPlan:
 def _tp_kind(cfg, key: str) -> Optional[str]:
     """The kind of a leaf that tensor parallelism can split (keys as the
     ``state_dict``'s: ``embed.embedding``, ``groups.<g>.l<j>.mixer.wq``),
-    or None: mamba, xLSTM and MoE leaves keep their whole compute."""
+    or None: the MoE leaves and the sLSTM's post-norm keep their whole
+    compute."""
     parts = key.split(".")
     if parts[0] == "embed":
         return "vocab"
     if parts[0] != "groups":
         return None
     layer = cfg.pattern[int(parts[2][1:])]
-    if parts[3] == "mixer" and layer.mixer in ("attn", "attn_local"):
-        return "kv_heads" if parts[4] in ("wk", "wv", "bk", "bv") else "heads"
+    if parts[3] == "mixer":
+        if layer.mixer in ("attn", "attn_local"):
+            return ("kv_heads" if parts[4] in ("wk", "wv", "bk", "bv")
+                    else "heads")
+        if layer.mixer == "slstm":
+            return {"ffn_up": "slstm_ffn", "ffn_down": "slstm_ffn",
+                    "norm_scale": None}.get(parts[4], "slstm")
+        return layer.mixer          # mamba, mlstm
     if parts[3] == "ffn" and layer.ffn == "mlp":
         return "ffn"
     return None
 
 
+def _tp_counts(cfg, kind: str) -> tuple:
+    """The counts that must divide the ``model`` size for ``kind`` to
+    split."""
+    if kind == "mamba":
+        return (cfg.d_inner_mamba,)
+    if kind == "mlstm":
+        return (cfg.d_inner_mlstm, cfg.n_heads)
+    if kind == "slstm":
+        return (cfg.n_heads, 4 * cfg.d_model)
+    if kind == "slstm_ffn":
+        return (int(cfg.xlstm.slstm_proj_factor * cfg.d_model),)
+    return ({"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+             "ffn": cfg.d_ff, "vocab": cfg.vocab_size}[kind],)
+
+
 def tp_plan(cfg, sizes: dict, param_axes: dict, specs: dict) -> TPPlan:
     """The tensor-parallel plan of a model on a mesh with axis ``sizes``,
     from its leaves' logical axes and resolved specs ({key: P}).  A kind
-    is split when its count (query heads, KV heads, ``d_ff``, vocabulary)
-    divides the ``model`` size and every leaf of the kind is stored split
-    over ``model`` along that axis; "kv_heads" also needs "heads".  A
-    ``model`` axis of one rank splits every kind present (the same code
-    runs, its collectives identities).  Under ``seq_shard`` nothing is
-    split."""
+    is split when its counts (query heads, KV heads, ``d_ff``, vocabulary,
+    a recurrent mixer's ``d_inner`` and heads, the sLSTM's gate width or
+    its post-FFN's width) divide the ``model`` size and every leaf of the
+    kind is stored split over ``model`` along that axis; "kv_heads" also
+    needs "heads".  A kind that does not split computes whole on every
+    ``model`` rank.  A ``model`` axis of one rank splits every kind
+    present (the same code runs, its collectives identities).  Under
+    ``seq_shard`` nothing is split."""
     m = sizes.get("model", 0)
-    counts = {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
-              "ffn": cfg.d_ff, "vocab": cfg.vocab_size}
     leaves: dict = {}
+    gates: dict = {}
     for key, axes in param_axes.items():
         kind = _tp_kind(cfg, key)
         if kind is not None:
-            leaves.setdefault(kind, {})[key] = axes.index(_TP_AXIS[kind])
+            leaves.setdefault(kind, {})[key] = min(
+                i for i, a in enumerate(axes) if a in _TP_AXIS[kind])
+            n = _GATES.get(kind, {}).get(key.rpartition(".")[2])
+            if n:
+                gates[key] = n
 
     def stored_on_model(key, d):
         spec = specs[key]
         return d < len(spec) and spec[d] == "model"
 
     kinds = {kind for kind, dims in leaves.items()
-             if m and not cfg.seq_shard and counts[kind] % m == 0
+             if m and not cfg.seq_shard
+             and all(n % m == 0 for n in _tp_counts(cfg, kind))
              and all(stored_on_model(k, d) for k, d in dims.items())}
     if "heads" not in kinds:
         kinds.discard("kv_heads")
-    return TPPlan(m, frozenset(kinds),
-                  {k: d for kind in sorted(kinds)
-                   for k, d in leaves[kind].items()})
+    views = {k: d for kind in sorted(kinds) for k, d in leaves[kind].items()}
+    return TPPlan(m, frozenset(kinds), views,
+                  {k: n for k, n in gates.items() if k in views})
+
+
+def gate_view(whole: torch.Tensor, dim: int, gates: int, rank: int,
+              m: int) -> torch.Tensor:
+    """Of a leaf whose ``dim`` is ``gates`` blocks side by side, the
+    ``rank``-th of ``m`` chunks of each block, side by side: what rank
+    ``rank`` computes with (its channels of x and of z, its heads' four
+    gates).  With one rank, ``whole`` itself."""
+    if m == 1:
+        return whole
+    w = whole.shape[dim] // (gates * m)
+    return torch.cat([whole.narrow(dim, (g * m + rank) * w, w)
+                      for g in range(gates)], dim)
+
+
+def gate_chunk(view: torch.Tensor, group, dim: int,
+               gates: int) -> torch.Tensor:
+    """The inverse of :func:`gate_view` over ``group``: from each rank's
+    view (a gradient of it, say), this rank's contiguous storage chunk of
+    the whole dim, by an all-gather (no sums: each entry of the chunk
+    comes from one rank's view).  With ``group`` None, ``view`` itself."""
+    if group is None:
+        return view
+    m, rank = dist.get_world_size(group), dist.get_rank(group)
+    every = gathered(view.contiguous(), group, dim)  # rank-major blocks
+    w = view.shape[dim] // gates
+    # storage block p (of gates * m) is gate p // m of rank p % m
+    return torch.cat([every.narrow(dim, ((p % m) * gates + p // m) * w, w)
+                      for p in range(rank * gates, (rank + 1) * gates)],
+                     dim)
 
 
 @dataclass(frozen=True)
@@ -452,8 +538,8 @@ def current_rules() -> dict:
 
 def current_tp(kind: str) -> Optional[TPRank]:
     """This rank's :class:`TPRank` when the innermost context's plan
-    splits ``kind`` ("heads", "kv_heads", "ffn", "vocab") over ``model``;
-    None otherwise (no context, no plan, or the kind computes whole)."""
+    splits ``kind`` (one of :class:`TPPlan`'s kinds) over ``model``; None
+    otherwise (no context, no plan, or the kind computes whole)."""
     if not _ACT_CTX:
         return None
     _, _, tp, rank, _ = _ACT_CTX[-1]

@@ -18,6 +18,17 @@ float32 atol = rtol = 2e-5.
 
 The JAX package has no Pallas kernel for the scan, so this stays plain
 PyTorch, as the reference's stays ``jnp``.
+
+Tensor parallelism over ``model`` (the plan's "mamba" kind,
+``distributed/sharding.py``): rank r computes its ``d_inner`` channels
+r.  ``in_proj`` is column-parallel (its x and z channels r, the leaf's
+gate view), the conv, ``dt_proj``, ``dt_bias``, ``A_log``, ``D`` and the
+scan are per channel and local, ``x_proj`` is row-parallel and its
+(B, S, dt_rank + 2 d_state) output is summed over ``model`` (every
+rank's channels read the whole of dt, B and C), and ``out_proj`` is
+row-parallel, its output summed (Megatron's g).  The cache holds the
+rank's channels: ``conv`` (B, K-1, d_inner / m) and ``ssm`` (B,
+d_inner / m, N).
 """
 from __future__ import annotations
 
@@ -26,6 +37,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import copy_to, reduce_from
+from repro_torch.distributed.sharding import current_tp
 from repro_torch.models.params import (
     dense_init, dtype_of, log_arange_init, ones_init, zeros_init,
 )
@@ -124,14 +137,18 @@ def mamba_apply(params, x, cfg, cache: Optional[dict] = None):
 
     Returns (out, new_cache); new_cache is None without a cache.  A
     prefill passes a fresh :func:`init_mamba_cache`, as the reference
-    does, and gets the states after its last position back.
+    does, and gets the states after its last position back.  Under the
+    tensor-parallel plan the leaves, the cache and ``di`` are the rank's
+    channels (see the module doc).
     """
     m = cfg.mamba
     cdt = dtype_of(cfg.compute_dtype)
     D = x.shape[-1]
     dtr = m.resolved_dt_rank(D)
+    tp = current_tp("mamba")
+    group = None if tp is None else tp.group
 
-    xz = x.to(cdt) @ params["in_proj"].to(cdt)                # (B,S,2di)
+    xz = copy_to(x.to(cdt), group) @ params["in_proj"].to(cdt)  # (B,S,2di)
     xs, z = xz.chunk(2, dim=-1)
 
     conv_cache = cache["conv"] if cache is not None else None
@@ -140,6 +157,7 @@ def mamba_apply(params, x, cfg, cache: Optional[dict] = None):
     xs = F.silu(xs)
 
     bcd = xs @ params["x_proj"].to(cdt)                       # (B,S,dtr+2N)
+    bcd = copy_to(reduce_from(bcd, group), group)   # every channel reads it
     dt_r, B_c, C_c = torch.split(bcd, [dtr, m.d_state, m.d_state], dim=-1)
     dt = F.softplus(dt_r @ params["dt_proj"].to(cdt)
                     + params["dt_bias"].to(cdt))              # (B,S,di)
@@ -148,16 +166,19 @@ def mamba_apply(params, x, cfg, cache: Optional[dict] = None):
     h0 = cache["ssm"] if cache is not None else None
     y, h_last = selective_scan(xs, dt, B_c, C_c, A, params["D"], h0=h0)
 
-    out = (y * F.silu(z)) @ params["out_proj"].to(cdt)
+    out = reduce_from((y * F.silu(z)) @ params["out_proj"].to(cdt), group)
     new_cache = None
     if cache is not None:
         new_cache = {"conv": new_conv, "ssm": h_last}
     return out, new_cache
 
 
-def init_mamba_cache(cfg, batch: int, dtype=torch.bfloat16, device=None):
+def init_mamba_cache(cfg, batch: int, dtype=torch.bfloat16, device=None,
+                     d_inner: Optional[int] = None):
+    """Zero states; ``d_inner``: the channels a rank holds (default the
+    whole ``d_inner``)."""
     m = cfg.mamba
-    di = cfg.d_inner_mamba
+    di = cfg.d_inner_mamba if d_inner is None else d_inner
     return {
         "conv": torch.zeros((batch, m.d_conv - 1, di), dtype=dtype,
                             device=device),

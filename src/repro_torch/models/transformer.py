@@ -96,11 +96,13 @@ def layer_apply(p, x, cfg: ArchConfig, layer: Layer, *, mode: str,
                 p["mixer"], h, cfg, local=local, positions=positions,
                 return_kv=mode == "prefill")
     elif layer.mixer == "mamba":
-        # a prefill starts from a fresh cache and returns the states after
-        # its last position, as the reference does
+        # a prefill starts from a fresh cache (of the rank's channels under
+        # tensor parallelism) and returns the states after its last
+        # position, as the reference does
         if mode == "prefill":
-            mixer_cache = ssm_mod.init_mamba_cache(cfg, x.shape[0],
-                                                   device=x.device)
+            mixer_cache = ssm_mod.init_mamba_cache(
+                cfg, x.shape[0], device=x.device,
+                d_inner=p["mixer"]["conv_b"].shape[0])
         h, new_mixer_cache = ssm_mod.mamba_apply(p["mixer"], h, cfg,
                                                  cache=mixer_cache)
     elif layer.mixer in ("mlstm", "slstm"):

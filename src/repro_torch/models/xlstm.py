@@ -12,6 +12,28 @@ the compute dtype; decode returns new state tensors.
 The stabilizer starts at -1e30 and the intra-chunk decay matrix is
 masked with -inf before ``exp``, as in the reference: both enter
 ``exp(-m_t)`` in the denominator's floor.
+
+Tensor parallelism over ``model`` (``distributed/sharding.py``'s plan):
+
+- "mlstm": rank r computes heads r, whose features are ``d_inner``
+  chunk r.  ``up_proj`` is column-parallel (its xm and z features r,
+  the leaf's gate view); the conv, the skip and the head-wise norm are
+  per feature; ``wq``, ``wk`` and ``wv`` are stored by rows (their second
+  ``inner`` dim cannot also take ``model``), so each is row-parallel
+  from the rank's features and its output reduce-scattered to heads r;
+  ``w_if``'s rows likewise give a partial (B, S, 2H) that is summed over
+  ``model``, of which the rank takes the i and f gates of heads r;
+  ``down_proj`` is row-parallel, its output summed (Megatron's g).  The
+  cache holds heads r: ``conv`` (the last K-1 pre-conv xm features r),
+  ``C``, ``n``, ``m``.
+- "slstm": rank r computes heads r.  ``w`` and ``b`` give the four gates
+  of heads r (the leaves' gate view), ``r`` is block-diagonal by head,
+  so the recurrence is local; the new ``h`` of every head is gathered
+  over ``model`` for the post-norm, which needs the whole row.  The
+  cache holds heads r: ``c``, ``n``, ``h``, ``m``.
+- "slstm_ffn": the sLSTM block's post-FFN, column- then row-parallel
+  by its width, where that width divides ``model``; else it computes
+  whole on every rank.
 """
 from __future__ import annotations
 
@@ -20,6 +42,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import (
+    copy_to, gather_cols, reduce_from, reduce_scatter_cols,
+)
+from repro_torch.distributed.sharding import current_tp
 from repro_torch.models.params import (
     const_init, dense_init, dtype_of, ones_init, zeros_init,
 )
@@ -143,14 +169,19 @@ def mlstm_decode_step(q, k, v, logi, logf, state):
 
 def mlstm_apply(params, x, cfg, cache: Optional[dict] = None,
                 return_state: bool = False):
-    """x: (B,S,D).  cache: {"conv": (B,K-1,di), "C","n","m"}."""
+    """x: (B,S,D).  cache: {"conv": (B,K-1,di), "C","n","m"}.  Under the
+    tensor-parallel plan the leaves and the cache are the rank's heads
+    (see the module doc)."""
     cdt = dtype_of(cfg.compute_dtype)
     B, S, D = x.shape
-    di = cfg.d_inner_mlstm
     H = cfg.n_heads
-    dh = di // H
+    dh = cfg.d_inner_mlstm // H
+    tp = current_tp("mlstm")
+    group = None if tp is None else tp.group
+    di = params["up_proj"].shape[1] // 2        # this rank's features
+    nh = di // dh                               # and heads
 
-    xz = x.to(cdt) @ params["up_proj"].to(cdt)
+    xz = copy_to(x.to(cdt), group) @ params["up_proj"].to(cdt)
     xm, z = torch.chunk(xz, 2, dim=-1)
 
     conv_cache = cache["conv"] if cache is not None else None
@@ -158,12 +189,19 @@ def mlstm_apply(params, x, cfg, cache: Optional[dict] = None,
         xm, params["conv_w"].to(cdt), params["conv_b"].to(cdt), conv_cache)
     xc = F.silu(xc)
 
-    q = (xc @ params["wq"].to(cdt)).reshape(B, S, H, dh)
-    k = (xc @ params["wk"].to(cdt)).reshape(B, S, H, dh)
-    v = (xm @ params["wv"].to(cdt)).reshape(B, S, H, dh)
+    def heads(a, w):
+        # row-parallel over the rank's features; the rank keeps its heads
+        return reduce_scatter_cols(a @ params[w].to(cdt),
+                                   group).reshape(B, S, nh, dh)
+
+    q, k, v = heads(xc, "wq"), heads(xc, "wk"), heads(xm, "wv")
     gates = (xm @ params["w_if"].to(cdt)).float()
-    logi = gates[..., :H] + params["b_i"][None, None]
-    logf = F.logsigmoid(gates[..., H:] + params["b_f"][None, None])
+    # (B,S,2H) partials summed: every rank's heads read the sum
+    gates = copy_to(reduce_from(gates, group), group)
+    lo = 0 if tp is None else tp.rank * nh
+    logi = gates[..., lo:lo + nh] + params["b_i"][None, None]
+    logf = F.logsigmoid(gates[..., H + lo:H + lo + nh]
+                        + params["b_f"][None, None])
 
     if cache is None:
         h, (C, n, m) = mlstm_scan(q, k, v, logi, logf)
@@ -179,7 +217,7 @@ def mlstm_apply(params, x, cfg, cache: Optional[dict] = None,
 
     h = _headwise_rmsnorm(h.to(cdt), params["norm_scale"])
     h = h + params["skip"].to(cdt)[None, None] * xc
-    out = (h * F.silu(z)) @ params["down_proj"].to(cdt)
+    out = reduce_from((h * F.silu(z)) @ params["down_proj"].to(cdt), group)
     if cache is None and not return_state:
         return out, None
     return out, {"conv": new_conv, "C": C, "n": n, "m": m}
@@ -250,18 +288,22 @@ def _slstm_cell(carry, wx, r):
 
 def slstm_apply(params, x, cfg, cache: Optional[dict] = None,
                 return_state: bool = False):
-    """x: (B,S,D).  A Python loop over time (sLSTM is not parallelizable)."""
+    """x: (B,S,D).  A Python loop over time (sLSTM is not parallelizable).
+    Under the tensor-parallel plan the gates, the recurrence and the cache
+    are the rank's heads (see the module doc)."""
     cdt = dtype_of(cfg.compute_dtype)
     B, S, D = x.shape
-    H = cfg.n_heads
-    dh = D // H
-
-    wx = (x.to(cdt) @ params["w"].to(cdt)).float()
-    wx = (wx + params["b"][None, None]).reshape(B, S, 4, H, dh)
+    dh = D // cfg.n_heads
+    tp = current_tp("slstm")
+    group = None if tp is None else tp.group
     r = params["r"]
+    nh = r.shape[1]                             # this rank's heads
+
+    wx = (copy_to(x.to(cdt), group) @ params["w"].to(cdt)).float()
+    wx = (wx + params["b"][None, None]).reshape(B, S, 4, nh, dh)
 
     if cache is None:
-        carry = init_slstm_cache(cfg, B, device=x.device)
+        carry = _slstm_state(B, nh, dh, x.device)
         carry = (carry["c"], carry["n"], carry["h"], carry["m"])
     else:
         carry = (cache["c"], cache["n"], cache["h"], cache["m"])
@@ -270,16 +312,20 @@ def slstm_apply(params, x, cfg, cache: Optional[dict] = None,
     for t in range(S):
         carry = _slstm_cell(carry, wx[:, t], r)
         hs.append(carry[2])
-    h = torch.stack(hs, dim=1).reshape(B, S, D).to(cdt)
+    h = torch.stack(hs, dim=1).reshape(B, S, nh * dh).to(cdt)
+    h = gather_cols(h, group)       # the post-norm reads every head
 
     # post-norm + gelu FFN (sLSTM block's post up/down projection)
     hf = h.float()
     var = torch.mean(hf * hf, dim=-1, keepdim=True)
     hn = (hf * torch.rsqrt(var + 1e-6)
           * params["norm_scale"].float()).to(cdt)
+    ffn = current_tp("slstm_ffn")
+    ffn = None if ffn is None else ffn.group
     # jax.nn.gelu defaults to the tanh approximation
-    out = F.gelu(hn @ params["ffn_up"].to(cdt), approximate="tanh") \
-        @ params["ffn_down"].to(cdt)
+    out = reduce_from(F.gelu(copy_to(hn, ffn) @ params["ffn_up"].to(cdt),
+                             approximate="tanh")
+                      @ params["ffn_down"].to(cdt), ffn)
 
     new_cache = None
     if cache is not None or return_state:
@@ -288,14 +334,8 @@ def slstm_apply(params, x, cfg, cache: Optional[dict] = None,
     return out, new_cache
 
 
-def init_slstm_cache(cfg, batch: int, dtype=torch.bfloat16,
-                     device=None) -> dict:
-    """All four states are float32 (``dtype`` is taken for the signature
-    that every mixer's cache shares).  Separate tensors: a prefill merge
-    writes each one in place."""
-    H = cfg.n_heads
-    dh = cfg.d_model // H
-    shape = (batch, H, dh)
+def _slstm_state(batch: int, heads: int, dh: int, device) -> dict:
+    shape = (batch, heads, dh)
 
     def z():
         return torch.zeros(shape, dtype=torch.float32, device=device)
@@ -303,6 +343,15 @@ def init_slstm_cache(cfg, batch: int, dtype=torch.bfloat16,
     return {"c": z(), "n": z(), "h": z(),
             "m": torch.full(shape, M_INIT, dtype=torch.float32,
                             device=device)}
+
+
+def init_slstm_cache(cfg, batch: int, dtype=torch.bfloat16,
+                     device=None) -> dict:
+    """All four states are float32 (``dtype`` is taken for the signature
+    that every mixer's cache shares).  Separate tensors: a prefill merge
+    writes each one in place."""
+    H = cfg.n_heads
+    return _slstm_state(batch, H, cfg.d_model // H, device)
 
 
 def slstm_cache_axes() -> dict:

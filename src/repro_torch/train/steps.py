@@ -38,11 +38,16 @@ jitted GSPMD step:
   this rank's experts (``models/moe.py``), and under the tensor-parallel
   plan (``distributed.sharding.tp_plan``, on ``StepBundle.tp``) this
   rank's ``model`` chunk of the attention, MLP, embedding and unembedding
-  leaves, gathered over the fsdp axes only.  Those layers run
-  Megatron-style, column- and row-parallel with the collectives of
-  ``distributed/collectives.py``, the loss vocab-parallel; with a
+  leaves and of the mamba, mLSTM and sLSTM mixers' leaves, gathered over
+  the fsdp axes only.  Those layers run Megatron-style, column- and
+  row-parallel with the collectives of ``distributed/collectives.py``,
+  the loss vocab-parallel.  A gate leaf (mamba's ``in_proj``, the
+  mLSTM's ``up_proj``, the sLSTM's ``w`` and ``b``) is stored as the
+  reference stores it, but computes on the rank's chunk of each of its
+  gate blocks (:func:`compute_view`), and its gradient is gathered back
+  to the storage chunk after the batch average (``gate_chunk``).  With a
   ``model`` axis of one rank the same code runs, its collectives
-  identities;
+  identities and every view the leaf's local tensor;
 - the gradients are averaged over the batch axes; under int8 compression
   within the pod first, then across ``pod`` in int8 with error feedback
   (``optim/compress.py``), in the reference's layout with one scale per
@@ -53,10 +58,10 @@ jitted GSPMD step:
   chunks, clipped by the norm of the whole gradient (the split
   gradients' squares summed over ``model``).
 
-Not tensor-parallel (ROADMAP A11c): the mamba and xLSTM leaves, the
-experts of the MoE layer's route without expert parallelism, and
-``seq_shard``; their ranks along ``model`` repeat the work, which changes
-no result.
+Not tensor-parallel (ROADMAP A11c): the experts of the MoE layer's
+route without expert parallelism, its shared expert, ``seq_shard``, and
+a kind whose counts do not divide ``model`` (the plan says which); their
+ranks along ``model`` repeat the work, which changes no result.
 
 Serving.  Mesh-free, ``prefill`` is ``Model.prefill`` and ``serve_step``
 ``Model.decode_step``, with ``params`` a ``Model``.  On a mesh both are
@@ -64,8 +69,8 @@ explicit SPMD in the same way as the train step: ``params`` is a
 ``Model`` whose leaves are DTensors placed by their resolved specs
 (:func:`place_params`, ``in_shardings[0]``); every rank is given the
 whole global batch of inputs or tokens and takes its rows
-(``batch_spec``); the attention, MLP, embedding and unembedding layers
-compute on the rank's ``model`` chunks through ``tp_plan``.  The outputs
+(``batch_spec``); the layers the plan splits compute on the rank's
+``model`` chunks through ``tp_plan``, as in the train step.  The outputs
 are DTensors, placed where the reference leaves them to its partitioner
 (``out_shardings``): the logits as the rows of the batch axes and whole
 over the vocabulary (the rank's vocabulary columns are gathered over
@@ -77,11 +82,13 @@ KV heads, each rank computes, writes and attends its own; split by
 sequence (``cache_seq`` on ``model``, where the KV heads do not divide
 it), each rank holds a chunk of the keys of every KV head, and the
 attention merges the ranks' partials (``models/attention.py``).  The
-mamba, xLSTM and MoE leaves compute on whole views, as in the train step
-(ROADMAP A11c); their cache leaves are placed by their specs
-(``inner``/``heads`` on ``model``), so the decode step gathers them whole
-over ``model`` for the computation and writes back only its own chunk.
-The dry run (``launch/dryrun.py``) traces these bundles on fake tensors
+recurrent cache leaves are placed by their specs (mamba's ``conv`` and
+``ssm`` by ``inner``, the mLSTM's and sLSTM's states by ``heads``, on
+``model``): where the plan splits the mixer, a decode step computes on
+each leaf's local tensor, the rank's channels or heads, and writes the
+new state into it; where it leaves the mixer whole, the step gathers the
+leaves whole over ``model`` and writes back only its own chunk.  The dry
+run (``launch/dryrun.py``) traces these bundles on fake tensors
 and prices them (``analysis/``).
 """
 from __future__ import annotations
@@ -101,7 +108,8 @@ from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.distributed.collectives import gathered
 from repro_torch.distributed.sharding import (
     P, NamedSharding, activation_sharding, axis_groups, batch_spec,
-    aliases, distribute, local_chunk, resolve_axes_tree, tp_plan, view_as,
+    aliases, distribute, gate_chunk, gate_view, local_chunk,
+    resolve_axes_tree, tp_plan, view_as,
 )
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import Model
@@ -387,6 +395,34 @@ def _bind(model: Model, tensors: dict) -> None:
         model.get_submodule(path)._parameters[name] = t
 
 
+@torch.no_grad()
+def compute_view(t, placements=None, gates=None) -> torch.Tensor:
+    """The plain tensor a rank computes with for a leaf ``t``: its value
+    under ``placements`` (:func:`view_as`), or for a leaf of the plan's
+    ``gates`` (``gates`` = (dim, blocks, rank, m, the ``model`` group),
+    on more than one ``model`` rank) the rank's chunk of each gate block
+    of the whole value (``gate_view``), the storage chunks gathered over
+    ``model``."""
+    if gates is None:
+        return view_as(t, placements)
+    d, blocks, rank, m, group = gates
+    return gate_view(gathered(view_as(t, placements), group, d), d, blocks,
+                     rank, m)
+
+
+def _gate_views(tp, mesh) -> dict:
+    """{key: (dim, blocks, rank, m, the ``model`` group)} of the plan's
+    gate leaves on more than one ``model`` rank; {} on one, where each is
+    its storage chunk (and on a rank outside the mesh)."""
+    coord = mesh.get_coordinate()
+    if tp.size <= 1 or coord is None:
+        return {}
+    rank = coord[list(mesh_axis_sizes(mesh)).index("model")]
+    group = mesh.get_group("model")
+    return {key: (tp.views[key], n, rank, tp.size, group)
+            for key, n in tp.gates.items()}
+
+
 def _expert_views(cfg, mesh, param_axes: dict, param_sh: dict, rows: int,
                   seq_len: int, exclude: tuple = ()) -> dict:
     """Under expert parallelism (``ep_shard``, where ``_ep_applicable`` to
@@ -454,13 +490,15 @@ def _mesh_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
                  {k: sh.spec for k, sh in state_sh["params"].items()})
     views = {key: tp.placements(key, sizes) for key in tp.views}
     views.update(ep_view)
+    gates = _gate_views(tp, mesh)
 
     def train_step(state, batch):
         model_group = (mesh.get_group("model")
                        if sizes.get("model", 1) > 1 else None)
         params = dict(state["params"].named_parameters())
-        _bind(compute, {key: view_as(p, views.get(key)).detach()
-                        .requires_grad_() for key, p in params.items()})
+        _bind(compute, {key: compute_view(p, views.get(key), gates.get(key))
+                        .detach().requires_grad_()
+                        for key, p in params.items()})
         coord = dict(zip(sizes, mesh.get_coordinate()))
         rows = _microbatch_rows(batch["labels"].shape[0], cfg.microbatches,
                                 sizes, coord, compression)
@@ -476,6 +514,9 @@ def _mesh_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
         if n > 1:
             for t in (*grads.values(), loss):
                 t.div_(n)
+        for key, (d, blocks, _, _, group) in gates.items():
+            # a gate view's gradient back to the leaf's storage chunk
+            grads[key] = gate_chunk(grads[key], group, d, blocks)
         split = set(views)          # gradients of this rank's model chunk
         if compression:
             # in the reference's layout: a stacked leaf has one scale, so
@@ -595,12 +636,21 @@ class _ServeMesh:
             raise NotImplementedError(
                 "a decode cache split by KV heads over 'model' needs the "
                 "tensor-parallel plan to split the KV heads too")
+        # the layers whose cache a decode step computes with in place: the
+        # attention layers, and the recurrent mixers the plan splits, whose
+        # states hold the rank's channels or heads (their cache specs put
+        # the same counts on "model" as their leaves')
+        self.local = self.attn | {
+            f"l{i}" for i, layer in enumerate(cfg.pattern)
+            if layer.mixer in ("mamba", "mlstm", "slstm")
+            and layer.mixer in self.tp.kinds}
         rows = B // math.prod(sizes[a] for a in ("pod", "data")
                               if a in sizes)
         self.views = {key: self.tp.placements(key, sizes)
                       for key in self.tp.views}
         self.views.update(_expert_views(cfg, mesh, param_axes,
                                         self.param_sh, rows, step_len))
+        self.gates = _gate_views(self.tp, mesh)
         # {params: (its leaves, the compute model bound to their views,
         # the views gathered per call)}
         self._bound = weakref.WeakKeyDictionary()
@@ -623,12 +673,12 @@ class _ServeMesh:
                                 zip(entry[0], leaves)):
             entry = self._bind_views(params, leaves)
         _, model, gathered = entry
-        for module, name, p, placements, _ in gathered:
-            module._parameters[name] = view_as(p, placements)
+        for module, name, p, placements, gates, _ in gathered:
+            module._parameters[name] = compute_view(p, placements, gates)
         try:
             yield model
         finally:
-            for module, name, _, _, meta in gathered:
+            for module, name, _, _, _, meta in gathered:
                 module._parameters[name] = meta
 
     def _bind_views(self, params: Model, leaves: tuple):
@@ -636,12 +686,13 @@ class _ServeMesh:
         own, gathered = {}, []
         for key, p in params.named_parameters():
             placements = self.views.get(key)
-            if aliases(p, placements):
+            gates = self.gates.get(key)
+            if gates is None and aliases(p, placements):
                 own[key] = view_as(p, placements)
             else:
                 path, _, name = key.rpartition(".")
                 gathered.append((model.get_submodule(path), name, p,
-                                 placements, self.shapes[key]))
+                                 placements, gates, self.shapes[key]))
         _bind(model, own)
         entry = self._bound[params] = (leaves, model, gathered)
         return entry
@@ -656,7 +707,8 @@ class _ServeMesh:
 
     def place_cache(self, cache: list) -> list:
         """A prefill's cache, computed on this rank, as DTensors placed by
-        the cache shardings: the rank's chunk of each leaf."""
+        the cache shardings: the rank's chunk of each leaf (a leaf that
+        the rank computed as its chunk, placed as it is)."""
         out = []
         for g, gc in enumerate(cache):
             out.append({})
@@ -669,16 +721,18 @@ class _ServeMesh:
         return out
 
     def compute_cache(self, cache: list) -> list:
-        """The tensors a decode step computes with: each attention leaf's
-        local tensor (written in place), every other leaf gathered whole
-        over ``model`` (the rank's own rows)."""
+        """The tensors a decode step computes with: the local tensor of
+        each leaf of an attention layer (written in place) and of a
+        recurrent mixer that the plan splits (its new states are written
+        back into it); every other leaf gathered whole over ``model``
+        (the rank's own rows)."""
         out = []
         for gc in cache:
             out.append({})
             for name, lc in gc.items():
                 leaves = {}
                 for n, t in lc["mixer"].items():
-                    if name in self.attn:
+                    if name in self.local:
                         leaves[n] = t.to_local()
                     else:
                         leaves[n] = view_as(t, [
@@ -688,17 +742,22 @@ class _ServeMesh:
         return out
 
     def write_back(self, cache: list, new: list) -> None:
-        """Copy this rank's chunk of each recurrent state that a decode
-        step computed whole over ``model`` into the cache's leaf."""
+        """Copy each recurrent state that a decode step computed into the
+        cache's leaf: the whole new state of a mixer the plan splits (its
+        rank's channels or heads), this rank's chunk of one computed whole
+        over ``model``.  An attention layer's leaves were written in
+        place."""
         for g, gc in enumerate(cache):
             for name, lc in gc.items():
                 if name in self.attn:
                     continue
                 shs = self.cache_sh[g][name]["mixer"]
                 for n, t in lc["mixer"].items():
-                    t.to_local().copy_(local_chunk(
-                        new[g][name]["mixer"][n], self.mesh,
-                        shs[n].placements, t.shape))
+                    src = new[g][name]["mixer"][n]
+                    if name not in self.local:
+                        src = local_chunk(src, self.mesh, shs[n].placements,
+                                          t.shape)
+                    t.to_local().copy_(src)
 
 
 def _prefill_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:

@@ -509,12 +509,15 @@ def _state_parts(ref, got, tag, coord):
     return out
 
 
-def _hold_step(ref, ranks, name, i, prev_tag, lr, pods=0):
+def _hold_step(ref, ranks, name, i, prev_tag, lr, pods=0,
+               state_parts=None):
     """Each rank's chunks after step ``i`` against the reference's shards
     at its coordinate (moments, error feedback, then the parameter deltas
     from ``prev_tag``).  ``pods``: int8 compression over that many pods,
     where at most 1 entry in 1000 may have flipped to the neighbouring
-    int8 value at some step (see the module doc)."""
+    int8 value at some step (see the module doc).  ``state_parts``: the
+    moments' check, :func:`_state_parts` by default."""
+    state_parts = state_parts or _state_parts
     tag = f"{name}/step{i}"
     for got in ranks:
         if not any(k.startswith(tag + "/") for k in got):
@@ -527,8 +530,8 @@ def _hold_step(ref, ranks, name, i, prev_tag, lr, pods=0):
                                if k.startswith(tag + "/")})
         flipped = {}            # leaf: the entries an int8 flip moved
         for j in range(i + 1):
-            for part, leaves in _state_parts(ref, got, f"{name}/step{j}",
-                                             coord).items():
+            for part, leaves in state_parts(ref, got, f"{name}/step{j}",
+                                            coord).items():
                 for leaf, (a, w, ok) in leaves.items():
                     if ok.all():
                         continue
