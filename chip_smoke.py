@@ -134,6 +134,23 @@ Phases, each of which raises on failure:
          bit, and the Ocampo scenario of (f) at 20 users and a window
          spec with replication under both backends, every non-wall
          metric equal.
+  (n)    the MoE experts and the shared expert split by the plan, on the
+         (1, 1) ("data", "model") mesh of one NCCL rank, ``ep_shard`` off:
+         granite-moe-3b-a800m at full width and depth (32 layers, 40
+         experts top-8, d_ff 512), the plan's kinds exactly heads,
+         kv_heads, vocab and expert, one train step at 4 x 1024 through
+         the mesh bundle bit for bit against the mesh-free step (loss,
+         every gradient, every parameter and moment; the two states
+         compared through a host copy, as they do not fit the card
+         together), a prefill of 4 x 1024 and 8 decode steps through the
+         serving bundles bit for bit against ``Model.prefill`` /
+         ``Model.decode_step`` (32 flash_attention launches a prefill, 32
+         flash_decode a step); llama4-maverick-400b-a17b at full width
+         (d 5120, 40 heads, 8 KV heads of 128, 128 experts top-1 of d_ff
+         8192, the shared expert, vocab 202048), depth cut to one period
+         of its pattern (2 of 48 layers: an MoE and a dense layer), the
+         same serving check with the kinds expert and shared; both
+         kernels held and timed at llama4's prefill and decode shapes.
 
     python3 chip_smoke.py --parent DIR   # (m) also times DIR's bundles
 
@@ -1623,8 +1640,8 @@ class record_routing:
         from repro_torch.models import moe
         self.saved, self.calls = moe.route, []
 
-        def recorded(router, xf, cfg, *group):
-            out = self.saved(router, xf, cfg, *group)
+        def recorded(*a, **k):
+            out = self.saved(*a, **k)
             self.calls.append((out[2], out[4]))
             return out
 
@@ -2005,9 +2022,11 @@ def phase_j1() -> dict:
     cfg = granite_train_cfg()
     bundle = mesh_bundle(cfg)
     # on one rank the plan splits every kind present (the vocabulary of
-    # 49155 too): the layers run their tensor-parallel code, the
-    # collectives identities
-    want = {"heads", "kv_heads", "vocab"}
+    # 49155 too, and the experts): the layers run their
+    # tensor-parallel code, the collectives identities; the MoE layers
+    # take the expert-parallel route, whose views of the expert leaves
+    # are the "expert" kind's
+    want = {"heads", "kv_heads", "vocab", "expert"}
     if bundle.tp.kinds != want:
         raise AssertionError(f"[j1] tensor-parallel kinds {bundle.tp.kinds},"
                              f" expected {want}")
@@ -2943,8 +2962,9 @@ M_TRAIN_B, M_TRAIN_S = 4, 512   # xlstm-125m's train step through the mesh
 M_B, M_S, M_STEPS = 4, 1024, 8  # prefill batch x seq, then decode steps
 M_PAIRS = 20                    # alternating bundle / Model.decode_step
 M_DEPTH = {XLSTM: None, JAMBA: JAMBA_LAYERS}    # None: every layer
+# jamba's MoE layers split by their experts ("expert")
 M_KINDS = {XLSTM: {"mlstm", "slstm", "slstm_ffn", "vocab"},
-           JAMBA: {"ffn", "heads", "kv_heads", "mamba", "vocab"}}
+           JAMBA: {"ffn", "heads", "kv_heads", "mamba", "vocab", "expert"}}
 M_BACKEND_N = 1_000_000         # float64 values through each backend
 M_PANES = (0.7, 1e-3, 3.0e5)    # pane widths (s)
 M_NBYTES = (0, 1500, 2**40 + 3)
@@ -2991,9 +3011,10 @@ def decode_cache(model, prefill_cache, shardings):
 def watch_states(cache):
     """During one decode step: whether the tensors the step computes with
     (``_ServeMesh.compute_cache``) are each recurrent cache leaf's own
-    storage, whether the leaf keeps it, which leaves were redistributed
-    (a DTensor gather), which leaves' storage a collective touched, and
-    every collective issued."""
+    storage, whether the leaf keeps it, which leaves were gathered
+    (``view_as`` asked for a value that is not the leaf's storage) and
+    whether any DTensor was redistributed, which leaves' storage a
+    collective touched, and every collective issued."""
     import torch
     from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -3013,8 +3034,9 @@ def watch_states(cache):
             self.collectives = 0
 
         def __enter__(self):
+            from repro_torch.distributed.sharding import aliases
             self.saved = (steps._ServeMesh.compute_cache,
-                          DTensor.redistribute)
+                          DTensor.redistribute, steps.view_as)
             ids = {id(t): k for k, t in self.leaves.items()}
 
             def compute_cache(sv, c):
@@ -3026,17 +3048,22 @@ def watch_states(cache):
                 return out
 
             def redistribute(dt, *a, **kw):
-                if id(dt) in ids:
-                    self.redistributed.add(ids[id(dt)])
+                self.redistributed.add(f"a DTensor {tuple(dt.shape)}")
                 return self.saved[1](dt, *a, **kw)
+
+            def view_as(t, placements=None):
+                if id(t) in ids and not aliases(t, placements):
+                    self.redistributed.add(ids[id(t)])
+                return self.saved[2](t, placements)
 
             steps._ServeMesh.compute_cache = compute_cache
             DTensor.redistribute = redistribute
+            steps.view_as = view_as
             return super().__enter__()
 
         def __exit__(self, *exc):
-            steps._ServeMesh.compute_cache, DTensor.redistribute = \
-                self.saved
+            (steps._ServeMesh.compute_cache, DTensor.redistribute,
+             steps.view_as) = self.saved
             return super().__exit__(*exc)
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -3058,7 +3085,7 @@ def watch_states(cache):
                     and not self.redistributed and not self.touched):
                 raise AssertionError(
                     f"{tag} recurrent cache leaves not read in place: read "
-                    f"{self.read}, kept {kept}, redistributed "
+                    f"{self.read}, kept {kept}, gathered or redistributed "
                     f"{sorted(self.redistributed)}, touched by a "
                     f"collective {sorted(self.touched)}")
             return len(self.leaves), self.collectives
@@ -3092,12 +3119,15 @@ def paired_host_cost(db, params, cache, model, plain, tok, pos,
                 faster=sum(d < 0 for d in diffs))
 
 
-def m_serve(arch: str, model, mesh) -> dict:
+def m_serve(arch: str, model, mesh, kinds=None, recurrent: bool = True,
+            tag: str = "[m]") -> dict:
     """A prefill of M_B x M_S and M_STEPS decode steps of ``arch``
     through the prefill and decode bundles on ``mesh``, each bit for bit
     against ``Model.prefill`` / ``Model.decode_step`` on the same
-    parameters (the decode on a copy of the cache); the recurrent cache
-    leaves read in place; the kernels' launches; the paired host cost."""
+    parameters (the decode on a copy of the cache); the plan's kinds
+    (``kinds``, default M_KINDS[arch]); with ``recurrent`` the recurrent
+    cache leaves read in place; the kernels' launches; the paired host
+    cost."""
     import torch
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.train import make_step_bundle
@@ -3105,13 +3135,15 @@ def m_serve(arch: str, model, mesh) -> dict:
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     fd = importlib.import_module("repro_torch.kernels.flash_decode")
     cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
     pb = make_step_bundle(cfg, ShapeCfg("p", M_S, M_B, "prefill"), mesh)
     db = make_step_bundle(cfg, ShapeCfg("d", M_S + M_STEPS, M_B, "decode"),
                           mesh)
-    if not pb.tp.kinds == db.tp.kinds == M_KINDS[arch]:
-        raise AssertionError(f"[m] {arch} tensor-parallel kinds "
+    kinds = M_KINDS[arch] if kinds is None else kinds
+    if not pb.tp.kinds == db.tp.kinds == kinds:
+        raise AssertionError(f"{tag} {arch} tensor-parallel kinds "
                              f"{pb.tp.kinds} / {db.tp.kinds}, expected "
-                             f"{M_KINDS[arch]}")
+                             f"{kinds}")
     params = place_params(cfg, {k: p.detach() for k, p in
                                 model.named_parameters()},
                           pb.in_shardings[0])
@@ -3131,14 +3163,14 @@ def m_serve(arch: str, model, mesh) -> dict:
     torch.cuda.synchronize()
     plain_prefill_s = time.perf_counter() - t0
     if not torch.equal(logits.to_local(), want_logits):
-        raise AssertionError(f"[m] {arch}: the prefill bundle's logits "
+        raise AssertionError(f"{tag} {arch}: the prefill bundle's logits "
                              "differ from Model.prefill's")
     bad = tree_equal(cache, want_cache)
     if bad:
-        raise AssertionError(f"[m] {arch}: prefill cache leaves differ: "
+        raise AssertionError(f"{tag} {arch}: prefill cache leaves differ: "
                              f"{bad[:4]}")
     if not bool(torch.isfinite(want_logits).all()):
-        raise AssertionError(f"[m] {arch}: non-finite prefill logits")
+        raise AssertionError(f"{tag} {arch}: non-finite prefill logits")
     n_leaves = len(list(tree_items(cache)))
     dcache, plain = decode_cache(model, local_tree(cache),
                                  db.in_shardings[1])
@@ -3148,7 +3180,8 @@ def m_serve(arch: str, model, mesh) -> dict:
         tok = torch.randint(0, cfg.vocab_size, (M_B, 1), generator=g,
                             device=DEV)
         fa.launches = fd.launches = 0
-        watch = watch_states(dcache)
+        watch = (watch_states(dcache) if recurrent
+                 else contextlib.nullcontext())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with watch:
@@ -3157,14 +3190,15 @@ def m_serve(arch: str, model, mesh) -> dict:
         walls.append(time.perf_counter() - t0)
         d_launches.append({"flash_attention": fa.launches,
                            "flash_decode": fd.launches})
-        seen = watch.check(f"[m] {arch} decode at pos {pos}:")
+        if recurrent:
+            seen = watch.check(f"{tag} {arch} decode at pos {pos}:")
         want, plain = model.decode_step(plain, tok, pos)
         if not torch.equal(logits.to_local(), want):
-            raise AssertionError(f"[m] {arch}: decode logits at pos {pos} "
+            raise AssertionError(f"{tag} {arch}: decode logits at pos {pos} "
                                  "differ from Model.decode_step's")
         bad = tree_equal(dcache, plain)
         if bad:
-            raise AssertionError(f"[m] {arch}: cache leaves after the "
+            raise AssertionError(f"{tag} {arch}: cache leaves after the "
                                  f"decode at pos {pos} differ: {bad[:4]}")
     host = paired_host_cost(db, params, dcache, model, plain, tok,
                             M_S + M_STEPS - 1)
@@ -3173,22 +3207,24 @@ def m_serve(arch: str, model, mesh) -> dict:
     want_p = {"flash_attention": n_attn, "flash_decode": 0}
     want_d = {"flash_attention": 0, "flash_decode": n_attn}
     if p_launches != want_p or d_launches != [want_d] * M_STEPS:
-        raise AssertionError(f"[m] {arch}: launches prefill {p_launches} "
+        raise AssertionError(f"{tag} {arch}: launches prefill {p_launches} "
                              f"(expected {want_p}), decode {d_launches} "
                              f"(expected {want_d} a step)")
-    log(f"[m] {gpu_line()}: {arch} ({cfg.n_layers} layers, d "
+    states = (f"the {seen[0]} recurrent cache leaves read and written in "
+              f"place (same data_ptr, none gathered, no collective on "
+              f"them; {seen[1]} collectives in a step)" if recurrent
+              else "no recurrent cache leaves")
+    log(f"{tag} {gpu_line()}: {arch} ({cfg.n_layers} layers, d "
         f"{cfg.d_model}, {cfg.compute_dtype} compute) through the prefill "
         f"and decode bundles on the (1, 1) mesh, plan {sorted(pb.tp.kinds)}"
         f": prefill ({M_B}, {M_S}) {prefill_s:.3f} s (Model.prefill "
         f"{plain_prefill_s:.3f} s), logits and {n_leaves} cache leaves "
         f"equal Model.prefill's bit for bit; {M_STEPS} decode steps at pos "
         f"{M_S}-{M_S + M_STEPS - 1}, wall {walls} s, logits and every cache "
-        f"leaf equal Model.decode_step's bit for bit; the {seen[0]} "
-        f"recurrent cache leaves read and written in place (same "
-        f"data_ptr, none redistributed, no collective on them; "
-        f"{seen[1]} collectives in a step); launches prefill {p_launches}, "
-        f"a decode step {d_launches[0]}")
-    log(f"[m] {gpu_line()}: {arch} mesh path's host cost, {M_PAIRS} "
+        f"leaf equal Model.decode_step's bit for bit; {states}; launches "
+        f"prefill {p_launches}, a decode step {d_launches[0]}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"{tag} {gpu_line()}: {arch} mesh path's host cost, {M_PAIRS} "
         f"alternating pairs at pos {M_S + M_STEPS - 1}: bundle step median "
         f"{host['bundle_s']} s, Model.decode_step {host['plain_s']} s; "
         f"bundle minus plain per pair: median {host['diff_s']} s, quartiles "
@@ -3497,6 +3533,176 @@ def phase_m() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# (n) the MoE experts and the shared expert split by the plan
+# ---------------------------------------------------------------------------
+
+LLAMA4 = "llama4-maverick-400b-a17b"
+LLAMA4_DIMS = dict(NH=40, KV=8, hd=128)     # G = 5
+# None: every layer; llama4: one period of its pattern (an MoE layer with
+# its shared expert, a dense layer), 2 of 48 layers
+N_DEPTH = {GRANITE: None, LLAMA4: 2}
+N_KINDS = {GRANITE: {"heads", "kv_heads", "vocab", "expert"},
+           LLAMA4: {"heads", "kv_heads", "ffn", "vocab", "expert",
+                    "shared"}}
+
+
+def n_config(arch):
+    """``arch`` at full width, ``ep_shard`` off (as configured), cut to
+    N_DEPTH[arch] layers."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if cfg.moe.ep_shard:
+        raise AssertionError(f"[n] {arch} sets ep_shard")
+    n = N_DEPTH[arch]
+    return dataclasses.replace(cfg, n_layers=n) if n else cfg
+
+
+def n_train() -> dict:
+    """granite-moe-3b-a800m at full width and depth, ``ep_shard`` off: one
+    train step at TRAIN_B x TRAIN_S through the mesh bundle on the (1, 1)
+    mesh (the plan splits the experts: "expert") against the mesh-free
+    step from the same state and batch: the loss, every gradient (as
+    ``_accumulate`` returns them), every parameter and both moments
+    after the step, bit for bit.  The two states do not fit on the card
+    together: each run's results are copied to the host before the next
+    starts."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import make_step_bundle, steps
+    from repro_torch.train.steps import full_state
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    cfg = n_config(GRANITE)
+    shape = ShapeCfg("t", TRAIN_S, TRAIN_B, "train")
+    g = torch.Generator(device=DEV).manual_seed(8)
+    batch = {k: torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                              generator=g, device=DEV)
+             for k in ("inputs", "labels")}
+    saved = steps._accumulate
+    runs, host, bad = [], None, []
+    for mesh in (make_mesh((1, 1), ("data", "model"), DEV), None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        bundle = make_step_bundle(cfg, shape, mesh)
+        if mesh is not None and bundle.tp.kinds != N_KINDS[GRANITE]:
+            raise AssertionError(f"[n] train plan {bundle.tp.kinds}, "
+                                 f"expected {N_KINDS[GRANITE]}")
+        state = bundle.init_fn(torch.Generator(device=DEV).manual_seed(0))
+        grads = {}
+
+        def accumulate(*a):
+            out = saved(*a)
+            grads.update({k: t.detach().clone() for k, t in out[0].items()})
+            return out
+
+        steps._accumulate = accumulate
+        try:
+            fa.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = bundle.step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            steps._accumulate = saved
+        runs.append(dict(loss=metrics["loss"].detach().cpu(), wall=wall,
+                         peak=torch.cuda.max_memory_allocated() / 2**30,
+                         launches=fa.launches))
+        leaves = {**{f"grad/{k}": t for k, t in grads.items()},
+                  **dict(tree_items(full_state(state)))}
+        if host is None:            # the mesh step's, to the host
+            host = {k: t.cpu() for k, t in leaves.items()}
+        else:                       # the mesh-free step's against them
+            if leaves.keys() != host.keys():
+                bad.append("the leaves' keys")
+            bad += [k for k, t in leaves.items()
+                    if not torch.equal(t, host[k].to(DEV))]
+        del state, bundle, grads, metrics, leaves
+    mesh_run, plain_run = runs
+    n_grads = sum(k.startswith("grad/") for k in host)
+    if not torch.equal(mesh_run["loss"], plain_run["loss"]) or \
+            not bool(torch.isfinite(mesh_run["loss"])):
+        raise AssertionError(f"[n] train losses {mesh_run['loss']} / "
+                             f"{plain_run['loss']}")
+    if bad or n_grads == 0:
+        raise AssertionError(f"[n] train step: {bad[:6]} differ")
+    del host
+    per_step = cfg.n_layers * (1 if cfg.remat == "none" else 2)
+    if mesh_run["launches"] != per_step or \
+            plain_run["launches"] != per_step:
+        raise AssertionError(f"[n] flash_attention launches in the step "
+                             f"{mesh_run['launches']} (mesh-free "
+                             f"{plain_run['launches']}), expected "
+                             f"{per_step}")
+    log(f"[n] {gpu_line()}: {GRANITE} full width and depth "
+        f"({cfg.n_layers} layers, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k}, d_ff {cfg.moe.d_ff}, remat {cfg.remat}), "
+        f"ep_shard off: one train step ({TRAIN_B}, {TRAIN_S}) through the "
+        f"mesh bundle on the (1, 1) mesh, plan {sorted(N_KINDS[GRANITE])}: "
+        f"loss {float(mesh_run['loss'])}, {n_grads} gradients, every "
+        f"parameter and both moments equal the mesh-free step's bit for "
+        f"bit; {per_step} "
+        f"flash_attention launches in each; walls mesh "
+        f"{mesh_run['wall']:.3f} s, mesh-free {plain_run['wall']:.3f} s "
+        f"(the process's first step of each); peak device memory "
+        f"{mesh_run['peak']:.3f} / {plain_run['peak']:.3f} GiB")
+    return dict(step_s=mesh_run["wall"], plain_step_s=plain_run["wall"],
+                launches=mesh_run["launches"], peak_gib=mesh_run["peak"])
+
+
+def phase_n(rnd) -> dict:
+    """The slice's path: granite-moe-3b-a800m (full, ``ep_shard`` off)
+    trained and served, and llama4-maverick-400b-a17b (full width, one
+    period) served, through the mesh bundles on the (1, 1) mesh of one
+    NCCL rank, the plan splitting the experts (and llama4's shared
+    expert), bit for bit against the mesh-free paths; both kernels held
+    and timed at llama4's prefill and decode shapes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    t0 = time.perf_counter()
+    out = {}
+    with nccl_rank():
+        out["train"] = n_train()
+        mesh = make_mesh((1, 1), ("data", "model"), DEV)
+        for arch in N_DEPTH:
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg = n_config(arch)
+            model = Model(cfg, device=DEV).init_params(
+                torch.Generator(device=DEV).manual_seed(0))
+            n_params = sum(p.numel() for p in model.parameters())
+            log(f"[n] {arch}: {cfg.n_layers} of "
+                f"{get_config(arch).n_layers} layers, "
+                f"d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+                f"{cfg.head_dim_}, {cfg.moe.num_experts} experts top-"
+                f"{cfg.moe.top_k} of d_ff {cfg.moe.d_ff}, shared expert "
+                f"{cfg.moe.shared_expert}, vocab {cfg.vocab_size}: "
+                f"{n_params} {cfg.param_dtype} params "
+                f"({n_params * 2 / 1e9:.2f} GB)")
+            out[arch] = m_serve(arch, model, mesh, N_KINDS[arch],
+                                recurrent=False, tag="[n]")
+            del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = n_config(LLAMA4)
+    dt = {"bfloat16": torch.bfloat16,
+          "float32": torch.float32}[cfg.cache_dtype]
+    pos = M_S + M_STEPS - 1
+    timed = {"flash_attention": time_prefill(rnd, "llama4-maverick", M_B,
+                                             M_S, **LLAMA4_DIMS),
+             "flash_decode": time_decode(rnd, "llama4-maverick", M_B,
+                                         M_S + M_STEPS, **LLAMA4_DIMS,
+                                         pos=pos, kv_dtype=dt)}
+    timed["flash_decode"].pop("n_split")
+    out["timed"] = timed
+    log(f"[n] phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3523,6 +3729,7 @@ def main() -> int:
     serve_bundle = phase_k(rnd)
     phase_l(serve_bundle)
     recurrent = phase_m()
+    moe_tp = phase_n(rnd)
     kernels = []
     for name, src, replaces, design in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -3562,6 +3769,17 @@ def main() -> int:
         # split (m): a prefill and the decode steps
         sb["serve_bundle_jamba"] = {
             "launches": recurrent[JAMBA]["launches"][name]}
+        # the MoE experts split by the plan (n): granite served through
+        # the bundles (and its train step, flash_attention), llama4 cut to
+        # one period served, the kernel timed at llama4's shapes
+        sb["serve_bundle_granite_moe"] = {
+            "launches": moe_tp[GRANITE]["launches"][name]}
+        sb["serve_bundle_llama4"] = {
+            "launches": moe_tp[LLAMA4]["launches"][name],
+            **moe_tp["timed"][name]}
+        if name == "flash_attention":
+            sb["train_granite_moe_expert_tp"] = {
+                "launches": moe_tp["train"]["launches"]}
         # serving the MoE (h) and hybrid (i) paths: their launches, and the
         # kernel checked and timed at their shapes (hd=64 G=3; hd=128 G=4)
         kernels.append({"name": name, "route": "cuda", "source": src,

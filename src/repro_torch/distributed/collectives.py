@@ -20,8 +20,10 @@ gradients between ranks.  Two cases need their own gradients:
   add: an all-gather of rows takes the gradient back as a reduce-scatter
   sum (:class:`_GatherRows`; ``torch.distributed._functional_collectives``'
   autograd all-gather does that, and on ``model`` would count the
-  replicated cotangent m times); a mean of per-rank scalars passes its
-  gradient as it is (:class:`_MeanOver`).
+  replicated cotangent m times), and a reduce-scatter of rows (each
+  rank's part of every row summed, the rank keeping its own) takes it
+  back as an all-gather (:class:`_ReduceScatterRows`); a mean of
+  per-rank scalars passes its gradient as it is (:class:`_MeanOver`).
 
 A group of ``None`` stands for one rank: the functions are then
 identities that return their input, with no copy.
@@ -130,6 +132,25 @@ class _GatherRows(torch.autograd.Function):
         return out, None
 
 
+class _ReduceScatterRows(torch.autograd.Function):
+    """The sum over the group of ``x``, of which this rank keeps its block
+    of rows (block r of n); the gradient is the ranks' blocks stacked in
+    rank order (an all-gather): the transpose of :class:`_GatherRows`."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = dist.get_world_size(group)
+        out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return gathered(g.contiguous(), ctx.group, 0), None
+
+
 class _MeanOver(torch.autograd.Function):
     """The mean over the groups' ranks of a scalar that each rank computes
     from its own rows; the gradient passes as it is (each rank's loss holds
@@ -145,6 +166,48 @@ class _MeanOver(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum over the group of a value that each rank computes from its
+    own chunk and then uses for its own chunk again (a norm's statistics
+    over features split over the group): the gradient is summed too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduced(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduced(g, ctx.group), None
+
+
+class _ScatterTo(torch.autograd.Function):
+    """This rank's chunk (chunk r of n along ``dim``) of a value that every
+    rank holds whole; the gradient is the ranks' chunks gathered, whole
+    on every rank (Megatron's scatter to the model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = x.shape[dim] // dist.get_world_size(group)
+        return x.narrow(dim, dist.get_rank(group) * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gathered(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+def sum_over(x, group):
+    """The sum of ``x`` over the group, its gradient summed as well."""
+    return x if group is None else _SumOver.apply(x, group)
+
+
+def scatter_to(x, group, dim: int = 0):
+    """This rank's chunk of a whole ``x`` along ``dim``; the gradient of
+    ``x`` is gathered whole on every rank."""
+    return x if group is None else _ScatterTo.apply(x, group, dim)
 
 
 def copy_to(x, group):

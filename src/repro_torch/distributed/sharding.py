@@ -25,10 +25,10 @@ Tensor parallelism over ``model`` (:func:`tp_plan`) is what XLA derives
 for the reference from the same specs: the dense layers whose heads,
 ``d_ff`` or vocabulary split evenly over ``model``, and the mamba, mLSTM
 and sLSTM mixers whose ``d_inner`` and heads do, compute on each rank's
-chunk of their leaves (Megatron's column- and row-parallel products).
-The MoE experts without expert parallelism, the shared expert and
-``seq_shard`` still compute whole on every ``model`` rank (ROADMAP
-A11c).
+chunk of their leaves (Megatron's column- and row-parallel products),
+as do the MoE layers' experts (by experts, or by their ``d_ff`` where the
+experts do not divide ``model``) and shared expert.  Under ``seq_shard``
+every layer still computes whole on every ``model`` rank (ROADMAP A11c).
 The mesh step hands the plan to the model through
 :class:`activation_sharding`, and the layers ask :func:`current_tp`.
 The serving bundles also tell the attention layers whether the decode
@@ -265,15 +265,31 @@ def view_as(t, placements=None) -> torch.Tensor:
     """The plain tensor this rank computes with: a DTensor's value under
     ``placements`` (default all ``Replicate()``: the full value).  Where
     every mesh dim whose placement differs has size 1, that is the local
-    tensor itself, with no copy; otherwise the DTensor is redistributed.
-    A plain tensor is returned as it is."""
+    tensor itself, with no copy; otherwise each mesh dim where ``t`` is
+    ``Shard(d)`` and ``placements`` ``Replicate()`` is gathered along
+    ``d`` by a c10d all-gather over that dim's group, the minor mesh dim
+    first (the chunk order of :func:`local_chunk`), and the values are
+    the DTensor's bit for bit.  Any other change of placement on a dim of
+    more than one rank raises.  A plain tensor is returned as it is."""
     if not isinstance(t, DTensor):
         return t
     if aliases(t, placements):
         return t.to_local()
     mesh = t.device_mesh
-    return t.redistribute(mesh, placements
-                          or [Replicate()] * mesh.ndim).to_local()
+    if placements is None:
+        placements = [Replicate()] * mesh.ndim
+    out = t.to_local()
+    for i in reversed(range(mesh.ndim)):
+        have, want = t.placements[i], placements[i]
+        if mesh.shape[i] == 1 or have == want:
+            continue
+        if not (isinstance(have, Shard) and want == Replicate()) or any(
+                placements[k] == have for k in range(i + 1, mesh.ndim)
+                if mesh.shape[k] > 1):
+            raise ValueError(f"mesh dim {i}: cannot gather {have} into "
+                             f"{want} under {list(placements)}")
+        out = gathered(out, mesh.get_group(i), have.dim)
+    return out
 
 
 def aliases(t, placements=None) -> bool:
@@ -298,7 +314,8 @@ def aliases(t, placements=None) -> bool:
 _TP_AXIS = {"heads": ("q_features",), "kv_heads": ("kv_features",),
             "ffn": ("ffn",), "vocab": ("vocab",), "mamba": ("inner",),
             "mlstm": ("inner", "heads"), "slstm": ("inner", "heads"),
-            "slstm_ffn": ("ffn",)}
+            "slstm_ffn": ("ffn",), "expert": ("expert",),
+            "expert_ffn": ("expert_ffn",), "shared": ("ffn",)}
 # the leaves whose split dim is several gate blocks side by side ([x | z],
 # [i | f | z | o]): stored as a contiguous chunk of the whole dim, they
 # compute on each block's chunk (see TPPlan)
@@ -319,7 +336,19 @@ class TPPlan:
     ``d_inner`` channels), "mlstm" (its heads and their ``d_inner``
     features), "slstm" (its heads) and "slstm_ffn" (the sLSTM block's
     post-FFN by its width, column- then row-parallel; it splits on its own
-    count, so it may split where "slstm" does not, and the reverse).
+    count, so it may split where "slstm" does not, and the reverse); and
+    the MoE layer: "expert" (the ``router``'s columns and the expert
+    leaves ``w_up``/``w_gate``/``w_down`` by their experts: each rank
+    runs its experts, at the capacity of the whole routed batch, and the
+    outputs are summed over ``model``), "expert_ffn" (the expert leaves by
+    their ``d_ff``, where the experts do not divide ``model``: every rank
+    runs every expert on its columns, column- then row-parallel) and
+    "shared" (the shared expert by its ``d_ff``, as "ffn").  Where the
+    MoE layer takes the expert-parallel route (``ep_shard``, where
+    ``models.moe._ep_applicable`` holds) that route's views, this rank's
+    experts at a local capacity, win over "expert" and "expert_ffn"
+    (``train/steps.py``); the new kinds apply where it does not:
+    ``ep_shard`` off, or a decode step with too few tokens a rank.
     ``views``: {leaf key: the dim of the leaf split over ``model``} for
     the leaves of those kinds; every other leaf's compute view is its
     whole value.  ``gates``: {leaf key: blocks} for the leaves of
@@ -347,28 +376,36 @@ class TPPlan:
         return [Shard(d) if a == "model" else Replicate() for a in names]
 
 
-def _tp_kind(cfg, key: str) -> Optional[str]:
-    """The kind of a leaf that tensor parallelism can split (keys as the
-    ``state_dict``'s: ``embed.embedding``, ``groups.<g>.l<j>.mixer.wq``),
-    or None: the MoE leaves and the sLSTM's post-norm keep their whole
-    compute."""
+def _tp_kinds(cfg, key: str) -> tuple:
+    """The kinds that tensor parallelism can split a leaf by (keys as the
+    ``state_dict``'s: ``embed.embedding``, ``groups.<g>.l<j>.mixer.wq``):
+    one, or for an expert leaf of an MoE layer two ("expert" by its
+    experts, "expert_ffn" by their ``d_ff``; the resolved spec puts at
+    most one of the two dims on ``model``); none for the sLSTM's
+    post-norm."""
     parts = key.split(".")
     if parts[0] == "embed":
-        return "vocab"
+        return ("vocab",)
     if parts[0] != "groups":
-        return None
+        return ()
     layer = cfg.pattern[int(parts[2][1:])]
     if parts[3] == "mixer":
         if layer.mixer in ("attn", "attn_local"):
-            return ("kv_heads" if parts[4] in ("wk", "wv", "bk", "bv")
-                    else "heads")
+            return (("kv_heads",) if parts[4] in ("wk", "wv", "bk", "bv")
+                    else ("heads",))
         if layer.mixer == "slstm":
-            return {"ffn_up": "slstm_ffn", "ffn_down": "slstm_ffn",
-                    "norm_scale": None}.get(parts[4], "slstm")
-        return layer.mixer          # mamba, mlstm
+            return {"ffn_up": ("slstm_ffn",), "ffn_down": ("slstm_ffn",),
+                    "norm_scale": ()}.get(parts[4], ("slstm",))
+        return (layer.mixer,)       # mamba, mlstm
     if parts[3] == "ffn" and layer.ffn == "mlp":
-        return "ffn"
-    return None
+        return ("ffn",)
+    if parts[3] == "ffn" and layer.ffn == "moe":
+        if parts[4] == "router":
+            return ("expert",)
+        if parts[4].startswith("shared_"):
+            return ("shared",)
+        return ("expert", "expert_ffn")     # w_up, w_gate, w_down
+    return ()
 
 
 def _tp_counts(cfg, kind: str) -> tuple:
@@ -382,6 +419,10 @@ def _tp_counts(cfg, kind: str) -> tuple:
         return (cfg.n_heads, 4 * cfg.d_model)
     if kind == "slstm_ffn":
         return (int(cfg.xlstm.slstm_proj_factor * cfg.d_model),)
+    if kind == "expert":
+        return (cfg.moe.padded_experts(),)
+    if kind in ("expert_ffn", "shared"):
+        return (cfg.moe.d_ff,)
     return ({"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
              "ffn": cfg.d_ff, "vocab": cfg.vocab_size}[kind],)
 
@@ -401,8 +442,7 @@ def tp_plan(cfg, sizes: dict, param_axes: dict, specs: dict) -> TPPlan:
     leaves: dict = {}
     gates: dict = {}
     for key, axes in param_axes.items():
-        kind = _tp_kind(cfg, key)
-        if kind is not None:
+        for kind in _tp_kinds(cfg, key):
             leaves.setdefault(kind, {})[key] = min(
                 i for i, a in enumerate(axes) if a in _TP_AXIS[kind])
             n = _GATES.get(kind, {}).get(key.rpartition(".")[2])

@@ -31,8 +31,22 @@ mesh train step, in which each rank holds only its own rows of the batch)
   experts at a *local* capacity, and the partial outputs are summed over
   ``model``.  ``aux`` and ``drop`` are averaged over the batch axes;
 - otherwise the dense route over the whole (micro)batch, as XLA computes
-  it: the rows are all-gathered over the batch axes, every rank routes and
-  computes all tokens, and keeps its own rows.
+  it: each rank computes its tokens' router logits, which are gathered
+  over the batch axes, and every rank routes every token at the capacity
+  of all of them; the tokens are gathered, each rank of the batch axes
+  runs its share of every expert's slots where the capacity splits
+  evenly (the reference splits the (E, C, D) buffer's capacity over the
+  batch axes), and the outputs are reduce-scattered to each rank's
+  tokens (else every rank runs every slot and keeps its own tokens);
+  the shared expert runs on the rank's tokens.
+
+On either route the tensor-parallel plan (``distributed.sharding``)
+splits the layer over ``model``: "expert" gives each rank its E/m
+experts (the router's columns gathered, as on the expert-parallel
+route, but at the capacity of the routed batch), "expert_ffn" every
+expert's ``d_ff`` columns, and "shared" the shared expert's, column-
+then row-parallel; the parts are summed over ``model``.  With a
+``model`` axis of one rank the code is the mesh-free code.
 
 The collectives are the autograd functions of
 ``distributed/collectives.py``: Megatron's f and g over ``model``, and
@@ -48,10 +62,11 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.distributed.collectives import (
-    _CopyTo, _GatherCols, _GatherRows, _MeanOver, _ReduceFrom,
+    _CopyTo, _GatherCols, _GatherRows, _MeanOver, _ReduceScatterRows,
+    copy_to, reduce_from,
 )
 from repro_torch.distributed.sharding import (
-    axis_groups, current_mesh, current_rules,
+    axis_groups, current_mesh, current_rules, current_tp,
 )
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import layers as L
@@ -80,22 +95,27 @@ def capacity_of(m, T: int) -> int:
     return max(1, int(m.capacity_factor * T * m.top_k / m.num_experts))
 
 
-def route(router, xf, cfg, group=None):
+def route(router, xf, cfg, group=None, rows=()):
     """Routing of the flat tokens ``xf`` (T, D).
 
     Returns ``probs`` (T, E) float32, ``gate_vals`` (T, k) renormalised,
     ``expert_ids`` (T, k), and per (token, choice) pair in token-major
     order: ``slot`` (T*k,), the pair's position in its expert's buffer,
     and ``keep`` (T*k,), whether that position is below the capacity.
-    With ``group`` (the expert-parallel route) ``router`` holds this
-    rank's columns, and the logits are gathered over the group.
+    With ``group`` (the expert-parallel route, the plan's "expert")
+    ``router`` holds this rank's columns, and the logits are gathered
+    over the group.  With ``rows`` (the groups of the batch axes, in mesh
+    order) ``xf`` holds this rank's tokens, and the logits of every
+    rank's are gathered (the minor axis first): T counts them all.
     """
     m = cfg.moe
-    T = xf.shape[0]
     k, E = m.top_k, m.padded_experts()
     logits = xf.float() @ router.float()
     if group is not None:
         logits = _GatherCols.apply(logits, group)
+    for g in reversed(rows):
+        logits = _GatherRows.apply(logits, g)
+    T = logits.shape[0]
     if E > m.num_experts:
         # dead experts never win the top-k
         col = torch.arange(E, device=xf.device)[None, :]
@@ -124,36 +144,46 @@ def moe_apply(params, x, cfg):
     if mesh is not None:
         if cfg.moe.ep_shard and _ep_applicable(cfg, x, mesh):
             return _moe_apply_ep(params, x, cfg, mesh)
-        groups = axis_groups(mesh, current_rules()["act_tokens"])
-        if groups:
-            return _moe_apply_gathered(params, x, cfg, groups)
+        return _moe_apply_dense(params, x, cfg, axis_groups(
+            mesh, current_rules()["act_tokens"]))
     return _moe_apply_dense(params, x, cfg)
 
 
 def _experts(params, xin, cfg, gate_vals, expert_ids, slot, keep, *,
-             lo: int = 0, group=None):
+             lo: int = 0, slots=None, group=None):
     """Scatter the kept (token, choice) pairs of experts ``lo ..
-    lo + E_l - 1`` (the expert leaves' rows) into their slots, run the
+    lo + E_l - 1`` (the expert leaves' rows) and of ``slots`` = (first,
+    count) (default: all of the capacity) into their slots, run the
     experts, and combine each token's k contributions in choice order.
-    With ``group`` (expert parallel), pairs of other ranks' experts are
-    left out and the partial outputs are summed over the group."""
+    Where the leaves hold fewer experts than the layer (expert parallel,
+    or the "expert" kind of the tensor-parallel plan), or ``slots`` fewer
+    slots than the capacity, the other pairs are left out: the output is
+    this rank's part of the sum.  With ``group`` (the ``model`` ranks
+    whose parts add: their experts, or every expert's ``d_ff`` columns
+    under "expert_ffn") the gates' gradient is summed over it; the caller
+    sums the parts."""
     cdt = dtype_of(cfg.compute_dtype)
     T, D = xin.shape
     k = cfg.moe.top_k
     E_l = params["w_up"].shape[0]
+    C = capacity_of(cfg.moe, T)
+    c_lo, C_l = (0, C) if slots is None else slots
     ids = expert_ids.reshape(T * k)
-    if group is not None:
+    if E_l < cfg.moe.padded_experts():
         keep = keep & (ids >= lo) & (ids < lo + E_l)
         ids = torch.where(keep, ids - lo, 0)
+    if C_l < C:
+        keep = keep & (slot >= c_lo) & (slot < c_lo + C_l)
+        slot = slot - c_lo
     safe_slot = torch.where(keep, slot, 0)
     token_idx = torch.arange(T * k, device=xin.device) // k
 
-    # scatter tokens into (E_l, C, D): each kept pair owns its slot
+    # scatter tokens into (E_l, C_l, D): each kept pair owns its slot
     contrib = torch.where(keep[:, None], xin[token_idx], 0)
-    xe = torch.zeros((E_l, capacity_of(cfg.moe, T), D), dtype=cdt,
+    xe = torch.zeros((E_l, C_l, D), dtype=cdt,
                      device=xin.device).index_put((ids, safe_slot), contrib,
                                                   accumulate=True)
-    ye = L.mlp(params, xe, cfg)                               # (E_l, C, D)
+    ye = L.mlp(params, xe, cfg)                               # (E_l, C_l, D)
 
     # gather back and combine, token by token in choice order
     gates = gate_vals.reshape(T * k)
@@ -164,14 +194,62 @@ def _experts(params, xin, cfg, gate_vals, expert_ids, slot, keep, *,
     out = parts[:, 0]
     for j in range(1, k):
         out = out + parts[:, j]
-    return out if group is None else _ReduceFrom.apply(out, group)
+    return out
+
+
+def _routed(params, xf, cfg, rows=()):
+    """Route the flat tokens ``xf`` (T, D) and run the experts, as the
+    tensor-parallel plan splits them (``current_tp``): under "expert"
+    this rank's experts, from the router's columns gathered; under
+    "expert_ffn" every expert on this rank's ``d_ff`` columns, from the
+    whole router; otherwise whole.  The parts are summed over ``model``.
+
+    With ``rows`` (the batch axes' groups, in mesh order) ``xf`` holds
+    this rank's tokens: the router's logits are gathered over them, every
+    rank routes every token, at the capacity of all of them, and runs the
+    experts on every rank's tokens; where the capacity splits evenly over
+    the batch ranks each runs its share of every expert's slots, as the
+    reference's partitioner splits the (E, C, D) buffer over the batch
+    axes, and the parts are reduce-scattered to each rank's tokens.
+    Returns (out of this rank's tokens (T, D), probs, expert_ids, keep),
+    the last three of every token."""
+    by_expert, by_ffn = current_tp("expert"), current_tp("expert_ffn")
+    tp = by_expert or by_ffn
+    group = None if tp is None else tp.group
+    xin = copy_to(xf, group)
+    if by_expert is not None:
+        probs, gate_vals, expert_ids, slot, keep = route(
+            params["router"], xin, cfg, group, rows)
+        lo = by_expert.rank * params["w_up"].shape[0]
+    else:
+        probs, gate_vals, expert_ids, slot, keep = route(
+            params["router"], xf, cfg, rows=rows)
+        lo = 0
+    n, idx = 1, 0                           # this rank's place on rows
+    for g in rows:
+        size = dist.get_world_size(g)
+        n, idx = n * size, idx * size + dist.get_rank(g)
+    for g in reversed(rows):                # the minor axis first
+        xin = _GatherRows.apply(xin, g)
+    C = capacity_of(cfg.moe, xin.shape[0])
+    slots = (idx * C // n, C // n) if rows and C % n == 0 else None
+    out = _experts(params, xin, cfg, gate_vals, expert_ids, slot, keep,
+                   lo=lo, slots=slots, group=group)
+    if slots is not None:
+        for g in rows:                      # the major axis first
+            out = _ReduceScatterRows.apply(out, g)
+    elif rows:
+        out = out[idx * xf.shape[0]:(idx + 1) * xf.shape[0]]
+    return reduce_from(out, group), probs, expert_ids, keep
 
 
 def _shared(params, xf, cfg):
+    """The shared expert, column- then row-parallel by its ``d_ff`` under
+    the plan's "shared" kind."""
     shared = {"w_up": params["shared_up"], "w_down": params["shared_down"]}
     if cfg.gated_mlp:
         shared["w_gate"] = params["shared_gate"]
-    return L.mlp(shared, xf, cfg)
+    return L.mlp(shared, xf, cfg, tp=current_tp("shared"))
 
 
 def _aux(probs, expert_ids, keep, m):
@@ -181,30 +259,21 @@ def _aux(probs, expert_ids, keep, m):
     return m.num_experts * torch.sum(me * ce), 1.0 - keep.float().mean()
 
 
-def _moe_apply_dense(params, x, cfg):
+def _moe_apply_dense(params, x, cfg, rows=()):
+    """The dense route, over the tokens of every rank of ``rows`` (the
+    batch axes' groups, in mesh order; none: this rank's tokens), as XLA
+    computes it for the reference: the router's logits on this rank's
+    tokens, gathered, and every token routed; the experts' slots split
+    over the ranks (:func:`_routed`); the shared expert on this rank's
+    tokens.  Returns this rank's tokens' output."""
     m = cfg.moe
     B, S, D = x.shape
     xf = x.reshape(B * S, D).to(dtype_of(cfg.compute_dtype))
-    probs, gate_vals, expert_ids, slot, keep = route(params["router"], xf,
-                                                     cfg)
-    out = _experts(params, xf, cfg, gate_vals, expert_ids, slot, keep)
+    out, probs, expert_ids, keep = _routed(params, xf, cfg, rows)
     if m.shared_expert:
         out = out + _shared(params, xf, cfg)
     aux, drop = _aux(probs, expert_ids, keep, m)
     return out.reshape(B, S, D), {"moe_aux": aux, "moe_drop": drop}
-
-
-def _moe_apply_gathered(params, x, cfg, groups):
-    """The dense route over the rows of every rank of ``groups`` (the
-    batch axes, in mesh order): returns this rank's rows of it."""
-    idx = 0
-    for group in groups:
-        idx = idx * dist.get_world_size(group) + dist.get_rank(group)
-    x_all = x
-    for group in reversed(groups):          # the minor axis first
-        x_all = _GatherRows.apply(x_all, group)
-    out, aux = _moe_apply_dense(params, x_all, cfg)
-    return out[idx * x.shape[0]:(idx + 1) * x.shape[0]], aux
 
 
 def _ep_applicable(cfg, x, mesh) -> bool:
@@ -241,8 +310,10 @@ def _moe_apply_ep(params, x, cfg, mesh):
     xin = xf if group is None else _CopyTo.apply(xf, group)
     probs, gate_vals, expert_ids, slot, keep = route(params["router"], xin,
                                                      cfg, group)
-    out = _experts(params, xin, cfg, gate_vals, expert_ids, slot, keep,
-                   lo=mesh.get_local_rank("model") * E_l, group=group)
+    out = reduce_from(_experts(params, xin, cfg, gate_vals, expert_ids,
+                               slot, keep,
+                               lo=mesh.get_local_rank("model") * E_l,
+                               group=group), group)
     if m.shared_expert:
         out = out + _shared(params, xf, cfg)
     aux, drop = _aux(probs, expert_ids, keep, m)

@@ -28,12 +28,16 @@ Tensor parallelism over ``model`` (``distributed/sharding.py``'s plan):
   ``C``, ``n``, ``m``.
 - "slstm": rank r computes heads r.  ``w`` and ``b`` give the four gates
   of heads r (the leaves' gate view), ``r`` is block-diagonal by head,
-  so the recurrence is local; the new ``h`` of every head is gathered
-  over ``model`` for the post-norm, which needs the whole row.  The
-  cache holds heads r: ``c``, ``n``, ``h``, ``m``.
+  so the recurrence is local.  The cache holds heads r: ``c``, ``n``,
+  ``h``, ``m``.
 - "slstm_ffn": the sLSTM block's post-FFN, column- then row-parallel
-  by its width, where that width divides ``model``; else it computes
-  whole on every rank.
+  by its width, where that width divides ``model``; the new ``h`` of
+  every head is then gathered over ``model`` for the post-norm, which
+  needs the whole row.  Where "slstm" splits and the width does not,
+  the post-norm runs on heads r (its mean square summed over
+  ``model``), the up projection is row-parallel from them and summed
+  over ``model``, and the down projection computes whole on every rank,
+  as the reference's partitioner computes it.
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.collectives import (
-    copy_to, gather_cols, reduce_from, reduce_scatter_cols,
+    copy_to, gather_cols, reduce_from, reduce_scatter_cols, scatter_to,
+    sum_over,
 )
 from repro_torch.distributed.sharding import current_tp
 from repro_torch.models.params import (
@@ -313,25 +318,49 @@ def slstm_apply(params, x, cfg, cache: Optional[dict] = None,
         carry = _slstm_cell(carry, wx[:, t], r)
         hs.append(carry[2])
     h = torch.stack(hs, dim=1).reshape(B, S, nh * dh).to(cdt)
-    h = gather_cols(h, group)       # the post-norm reads every head
-
-    # post-norm + gelu FFN (sLSTM block's post up/down projection)
-    hf = h.float()
-    var = torch.mean(hf * hf, dim=-1, keepdim=True)
-    hn = (hf * torch.rsqrt(var + 1e-6)
-          * params["norm_scale"].float()).to(cdt)
     ffn = current_tp("slstm_ffn")
-    ffn = None if ffn is None else ffn.group
-    # jax.nn.gelu defaults to the tanh approximation
-    out = reduce_from(F.gelu(copy_to(hn, ffn) @ params["ffn_up"].to(cdt),
-                             approximate="tanh")
-                      @ params["ffn_down"].to(cdt), ffn)
+    if group is not None and ffn is None:
+        # the post-FFN's width does not split: the post-norm of the rank's
+        # heads, its statistics summed over model, and the up projection
+        # row-parallel from them (the rows of the rank's heads), as the
+        # reference's partitioner contracts over the split features
+        out = _slstm_post_split(params, h, cfg, group, D)
+    else:
+        h = gather_cols(h, group)       # the post-norm reads every head
+        # post-norm + gelu FFN (sLSTM block's post up/down projection)
+        hf = h.float()
+        var = torch.mean(hf * hf, dim=-1, keepdim=True)
+        hn = (hf * torch.rsqrt(var + 1e-6)
+              * params["norm_scale"].float()).to(cdt)
+        ffn = None if ffn is None else ffn.group
+        # jax.nn.gelu defaults to the tanh approximation
+        out = reduce_from(F.gelu(copy_to(hn, ffn)
+                                 @ params["ffn_up"].to(cdt),
+                                 approximate="tanh")
+                          @ params["ffn_down"].to(cdt), ffn)
 
     new_cache = None
     if cache is not None or return_state:
         new_cache = {"c": carry[0], "n": carry[1], "h": carry[2],
                      "m": carry[3]}
     return out, new_cache
+
+
+def _slstm_post_split(params, h, cfg, group, D: int):
+    """The sLSTM block's post-norm and post-FFN on the rank's heads ``h``
+    (B, S, D / m) where "slstm" splits and "slstm_ffn" does not: the
+    norm's mean square summed over ``model``, the rank's features of the
+    norm and its rows of ``ffn_up`` (their gradients gathered whole), the
+    up projection summed over ``model`` (Megatron's g), the down
+    projection whole."""
+    cdt = dtype_of(cfg.compute_dtype)
+    hf = h.float()
+    var = sum_over(torch.sum(hf * hf, dim=-1, keepdim=True), group) / D
+    scale = scatter_to(params["norm_scale"], group, 0).float()
+    hn = (hf * torch.rsqrt(var + 1e-6) * scale).to(cdt)
+    up = reduce_from(hn @ scatter_to(params["ffn_up"], group, 0).to(cdt),
+                     group)
+    return F.gelu(up, approximate="tanh") @ params["ffn_down"].to(cdt)
 
 
 def _slstm_state(batch: int, heads: int, dh: int, device) -> dict:

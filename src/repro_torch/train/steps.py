@@ -38,10 +38,14 @@ jitted GSPMD step:
   this rank's experts (``models/moe.py``), and under the tensor-parallel
   plan (``distributed.sharding.tp_plan``, on ``StepBundle.tp``) this
   rank's ``model`` chunk of the attention, MLP, embedding and unembedding
-  leaves and of the mamba, mLSTM and sLSTM mixers' leaves, gathered over
-  the fsdp axes only.  Those layers run Megatron-style, column- and
-  row-parallel with the collectives of ``distributed/collectives.py``,
-  the loss vocab-parallel.  A gate leaf (mamba's ``in_proj``, the
+  leaves, of the mamba, mLSTM and sLSTM mixers' leaves and of the MoE
+  layers' router, experts and shared expert, gathered over the fsdp axes
+  only (by c10d all-gathers, ``view_as``).  An expert leaf's view is its
+  own storage chunk where nothing else splits it; where the
+  expert-parallel route applies, its views (the same chunks) win.  Those
+  layers run Megatron-style, column- and row-parallel with the
+  collectives of ``distributed/collectives.py``, the loss
+  vocab-parallel.  A gate leaf (mamba's ``in_proj``, the
   mLSTM's ``up_proj``, the sLSTM's ``w`` and ``b``) is stored as the
   reference stores it, but computes on the rank's chunk of each of its
   gate blocks (:func:`compute_view`), and its gradient is gathered back
@@ -58,10 +62,15 @@ jitted GSPMD step:
   chunks, clipped by the norm of the whole gradient (the split
   gradients' squares summed over ``model``).
 
-Not tensor-parallel (ROADMAP A11c): the experts of the MoE layer's
-route without expert parallelism, its shared expert, ``seq_shard``, and
-a kind whose counts do not divide ``model`` (the plan says which); their
-ranks along ``model`` repeat the work, which changes no result.
+Not tensor-parallel (ROADMAP A11c): ``seq_shard``, and a kind whose
+counts do not divide ``model`` (the plan says which); their ranks along
+``model`` repeat the work, which changes no result.
+
+int8 compression raises under expert parallelism over a ``model`` axis
+of more than one rank (the reference's own step fails there, ROADMAP
+C13), not under the plan's "expert" or "expert_ffn" kinds: their
+gradients are gathered whole over ``model`` before the quantizer, as
+every split kind's (``tests/test_torch_tp.py``'s ``moe_int8``).
 
 Serving.  Mesh-free, ``prefill`` is ``Model.prefill`` and ``serve_step``
 ``Model.decode_step``, with ``params`` a ``Model``.  On a mesh both are
@@ -291,9 +300,13 @@ def place_params(cfg: ArchConfig, full: dict, shardings: dict) -> Model:
 
 
 def _grads_of(model, batch):
+    """A leaf the loss does not read (the embedding table of a config fed
+    embeddings) gets a zero gradient, as ``jax.grad`` gives it; AdamW then
+    treats it as the reference's does (no step, weight decay only)."""
     params = dict(model.named_parameters())
     loss, metrics = model.loss(batch)
-    grads = torch.autograd.grad(loss, list(params.values()))
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True, materialize_grads=True)
     return dict(zip(params, grads)), loss.detach(), metrics
 
 

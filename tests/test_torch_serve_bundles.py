@@ -26,7 +26,12 @@ Cases, smoke configs (d_model 128, 4 query heads of 32, float32), with
   the weights over ``data``, KV heads over ``model``;
 - jamba-v0.1-52b on (1, 2): the mamba mixers split by ``d_inner``
   channels, their caches (``inner`` on ``model``) read and written in
-  place by each rank; the MoE layers whole;
+  place by each rank; the MoE layers by their experts;
+- granite-moe-3b-a800m (4 experts top-2, no ``ep_shard``) on (1, 2) and
+  (2, 2): each rank runs its experts at the capacity of the routed batch
+  (on (2, 2) the rows gathered over ``data``);
+- llama4-maverick-400b-a17b (4 experts top-1, MoE and dense layers) on
+  (1, 2): the experts by experts, the shared expert by its ``d_ff``;
 - xlstm-125m on (1, 2) and (1, 4): the mLSTM and sLSTM mixers split by
   heads, their caches (``inner`` and ``heads`` on ``model``) read and
   written in place, the sLSTM's post-FFN split at m=2 only;
@@ -68,6 +73,9 @@ CASES = {
                    dict(n_kv_heads=1, sliding_window=8), "seq"),
     "qwen2_fsdp": ("qwen2-7b", (2, 2), dict(fsdp_params=True), "kv_heads"),
     "jamba": ("jamba-v0.1-52b", (1, 2), {}, "kv_heads"),
+    "granite": ("granite-moe-3b-a800m", (1, 2), {}, "kv_heads"),
+    "granite_22": ("granite-moe-3b-a800m", (2, 2), {}, "kv_heads"),
+    "llama4": ("llama4-maverick-400b-a17b", (1, 2), {}, "kv_heads"),
     "xlstm_12": ("xlstm-125m", (1, 2), {}, "none"),
     "xlstm_14": ("xlstm-125m", (1, 4), {}, "none"),
     "xlstm_whole": ("xlstm-125m", (1, 4), dict(n_heads=2), "none"),
@@ -77,8 +85,10 @@ SPLIT_STATES = ("jamba", "xlstm_12", "xlstm_14")
 # on (1, 1), bit for bit: {name: the kinds the plan splits there}
 DENSE = ["ffn", "heads", "kv_heads", "vocab"]
 ONE_RANK = {"qwen2_kv": DENSE, "gemma2_seq": DENSE,
-            "jamba": sorted(DENSE + ["mamba"]),
-            "xlstm_12": ["mlstm", "slstm", "slstm_ffn", "vocab"]}
+            "jamba": sorted(DENSE + ["expert", "mamba"]),
+            "xlstm_12": ["mlstm", "slstm", "slstm_ffn", "vocab"],
+            "granite": ["expert", "heads", "kv_heads", "vocab"],
+            "llama4": sorted(DENSE + ["expert", "shared"])}
 TOL = 2e-5
 # jamba's deep layers: the mesh-free port and the reference already differ
 # by up to 5.7e-5 there (float32 sums of the mamba scan and the MoE in
@@ -195,7 +205,7 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
     import torch
     import torch.distributed as dist
     from repro_torch.configs.base import ShapeCfg
-    from repro_torch.distributed.sharding import distribute
+    from repro_torch.distributed.sharding import aliases, distribute
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import Model
     from repro_torch.train import make_step_bundle
@@ -214,8 +224,10 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
         """During one decode step: whether the tensors the step computes
         with (``_ServeMesh.compute_cache``) are each recurrent cache
         leaf's own local storage, whether the leaf keeps that storage,
-        which leaves were redistributed (a DTensor gather), and which
-        leaves' storage a collective read or wrote."""
+        which leaves were gathered over the mesh (``view_as`` asked for a
+        value that is not the leaf's own storage), whether any DTensor
+        was redistributed, and which leaves' storage a collective read or
+        wrote."""
 
         def __init__(self, cache):
             super().__init__()
@@ -226,10 +238,11 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
             self.ptrs = {k: t.to_local().data_ptr()
                          for k, t in self.leaves.items()}
             self.read, self.redistributed, self.touched = {}, set(), set()
+            self.redistributions = 0
 
         def __enter__(self):
             self.saved = (steps_mod._ServeMesh.compute_cache,
-                          DTensor.redistribute)
+                          DTensor.redistribute, steps_mod.view_as)
             ids = {id(t): k for k, t in self.leaves.items()}
 
             def compute_cache(sv, cache):
@@ -241,17 +254,22 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
                 return out
 
             def redistribute(dt, *a, **kw):
-                if id(dt) in ids:
-                    self.redistributed.add(ids[id(dt)])
+                self.redistributions += 1
                 return self.saved[1](dt, *a, **kw)
+
+            def view_as(t, placements=None):
+                if id(t) in ids and not aliases(t, placements):
+                    self.redistributed.add(ids[id(t)])
+                return self.saved[2](t, placements)
 
             steps_mod._ServeMesh.compute_cache = compute_cache
             DTensor.redistribute = redistribute
+            steps_mod.view_as = view_as
             return super().__enter__()
 
         def __exit__(self, *exc):
-            steps_mod._ServeMesh.compute_cache, DTensor.redistribute = \
-                self.saved
+            (steps_mod._ServeMesh.compute_cache, DTensor.redistribute,
+             steps_mod.view_as) = self.saved
             return super().__exit__(*exc)
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -269,6 +287,7 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
                     "kept": {k: t.to_local().data_ptr() == self.ptrs[k]
                              for k, t in self.leaves.items()},
                     "redistributed": sorted(self.redistributed),
+                    "redistributions": self.redistributions,
                     "touched": sorted(self.touched)}
 
     def save(prefix, logits, cache, coord):
@@ -514,15 +533,17 @@ def test_sequence_split_cache_is_never_whole_on_a_rank(sides, name):
 def test_decode_reads_split_states_in_place(sides, name):
     """A decode step computes a split recurrent mixer (mamba, mLSTM,
     sLSTM) on its cache leaves' own local tensors and writes its new
-    states into them: no leaf is redistributed (gathered over the mesh)
-    and no collective reads a leaf's storage; where the plan leaves the
-    mixers whole (2 heads on 4 ranks) the leaves split over ``model`` are
-    gathered, and computed on copies."""
+    states into them: no leaf is gathered over the mesh and no collective
+    reads a leaf's storage; where the plan leaves the mixers whole (2
+    heads on 4 ranks) the leaves split over ``model`` are gathered, by a
+    c10d all-gather that reads the leaf's storage (ROADMAP C18: no
+    DTensor is redistributed), and computed on copies."""
     _, ranks = sides
     for got in _ranks(ranks, name):
         for i in range(len(DECODE_POS)):
             rep = json.loads(str(got[f"{name}/states{i}"]))
             assert rep["read_in_place"] and all(rep["kept"].values())
+            assert rep["redistributions"] == 0, rep
             gathered = set(rep["redistributed"])
             if name in SPLIT_STATES:
                 assert all(rep["read_in_place"].values()), rep

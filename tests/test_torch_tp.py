@@ -30,7 +30,16 @@ batch 8 x 32, the same config changes on both sides:
 - xlstm-125m with int8 compression on (2, 1, 2) ``("pod", "data",
   "model")``, one microbatch (ROADMAP C9), as
   ``tests/test_torch_distributed.py`` builds it: the gate leaves'
-  gradients pass the gather over ``model`` before the quantizer.
+  gradients pass the gather over ``model`` before the quantizer;
+  granite-moe-3b-a800m likewise, its experts split over ``model``;
+- granite-moe-3b-a800m without ``ep_shard`` on (1, 2) and (2, 2) (4
+  experts split by the plan, two a rank, at the capacity of the routed
+  batch, split over ``data`` on (2, 2)), and with 3 experts on (1, 2)
+  (their ``d_ff`` split instead); llama4-maverick-400b-a17b on (1, 2)
+  (4 experts top-1, the shared expert by its ``d_ff``, MoE and dense
+  layers); jamba's MoE layers split by their experts too.  Each MoE
+  call's routing decisions in the first step equal the mesh-free
+  step's.
 
 What is checked: both steps' losses (rtol 1e-5); each rank's chunks of
 the parameters and moments against the reference's shards at its
@@ -67,7 +76,9 @@ from test_torch_distributed import _flat, _hold_step, _lr
 B, S, STEPS = 8, 32, 2
 ALL = {"heads", "kv_heads", "ffn", "vocab"}
 XLSTM = {"mlstm", "slstm", "slstm_ffn", "vocab"}
-JAMBA = {"heads", "kv_heads", "ffn", "mamba", "vocab"}
+JAMBA = {"heads", "kv_heads", "ffn", "mamba", "vocab", "expert"}
+GRANITE = {"heads", "kv_heads", "vocab", "expert"}
+LLAMA4 = ALL | {"expert", "shared"}
 # name: (arch, mesh shape, config changes, kinds the plan splits)
 CASES = {
     "qwen2_12": ("qwen2-7b", (1, 2), dict(n_kv_heads=2), ALL),
@@ -77,7 +88,18 @@ CASES = {
                   dict(fsdp_params=True, sliding_window=16), ALL),
     "granite34_12": ("granite-34b", (1, 2), {}, {"heads", "ffn", "vocab"}),
     "moe_22": ("granite-moe-3b-a800m", (2, 2), dict(ep_shard=True),
-               {"heads", "kv_heads", "vocab"}),
+               GRANITE),
+    # without expert parallelism: the experts split by the plan, each rank
+    # its experts at the capacity of the routed (gathered) batch
+    "moe_tp_12": ("granite-moe-3b-a800m", (1, 2), {}, GRANITE),
+    "moe_tp_22": ("granite-moe-3b-a800m", (2, 2), {}, GRANITE),
+    # 3 experts on 2 ranks: the experts' d_ff splits instead
+    "moe_ffn_12": ("granite-moe-3b-a800m", (1, 2), dict(num_experts=3),
+                   GRANITE - {"expert"} | {"expert_ffn"}),
+    # 4 experts top-1 and the shared expert, MoE and dense layers; float32
+    # moments (the config's are bf16, which numpy cannot hold)
+    "llama4_12": ("llama4-maverick-400b-a17b", (1, 2),
+                  dict(opt_dtype="float32"), LLAMA4),
     # the sLSTM's post-FFN (170 wide) splits at m=2, not at m=4
     "xlstm_12": ("xlstm-125m", (1, 2), {}, XLSTM),
     "xlstm_14": ("xlstm-125m", (1, 4), {}, XLSTM - {"slstm_ffn"}),
@@ -85,6 +107,11 @@ CASES = {
     "jamba_22": ("jamba-v0.1-52b", (2, 2), dict(fsdp_params=True), JAMBA),
     "xlstm_int8": ("xlstm-125m", (2, 1, 2), dict(grad_compression="int8"),
                    XLSTM),
+    # the experts split over model under int8: their gradients gathered
+    # whole before the quantizer, as the other kinds' (no expert
+    # parallelism, whose route the reference cannot run with int8: C13)
+    "moe_int8": ("granite-moe-3b-a800m", (2, 1, 2),
+                 dict(grad_compression="int8"), GRANITE),
 }
 AXES = ("data", "model")
 AXES3 = ("pod", "data", "model")
@@ -92,10 +119,13 @@ AXES3 = ("pod", "data", "model")
 PLAIN = ("xlstm_12", "xlstm_14", "jamba_12", "jamba_22")
 # int8 compression: the quantizer's input held against the mesh-free
 # gradient of the pod's rows (ROADMAP C16)
-QUANTIZED = ("xlstm_int8",)
+QUANTIZED = ("xlstm_int8", "moe_int8")
 # on a (1, 1) mesh, bit for bit: {name: the kinds split there}
 ONE_RANK = {"qwen2_12": ALL, "gemma2_22": ALL, "xlstm_12": XLSTM,
-            "jamba_12": JAMBA}
+            "jamba_12": JAMBA, "moe_tp_12": GRANITE, "llama4_12": LLAMA4}
+# the MoE cases: each MoE call's routing decisions (expert ids, slots,
+# keep) in the first step, against the mesh-free step's, exactly
+ROUTED = ("moe_tp_12", "moe_tp_22", "moe_ffn_12", "llama4_12", "jamba_12")
 # the leaves of each kind: by the ends of their keys for the dense
 # layers, by the recurrent mixer and the leaf's name for the others
 KIND_LEAVES = {"heads": (".mixer.wq", ".mixer.bq", ".mixer.wo"),
@@ -103,6 +133,13 @@ KIND_LEAVES = {"heads": (".mixer.wq", ".mixer.bq", ".mixer.wo"),
                             ".mixer.bv"),
                "ffn": (".ffn.w_up", ".ffn.w_gate", ".ffn.w_down"),
                "vocab": ("embed.embedding", "embed.unembed")}
+# an MoE layer's leaves: the router by its experts, the expert leaves by
+# their experts or by their d_ff, the shared expert by its d_ff
+MOE_LEAVES = {"router": ("expert",), "w_up": ("expert", "expert_ffn"),
+              "w_gate": ("expert", "expert_ffn"),
+              "w_down": ("expert", "expert_ffn"),
+              "shared_up": ("shared",), "shared_gate": ("shared",),
+              "shared_down": ("shared",)}
 MIXER_LEAVES = {
     "mamba": {n: "mamba" for n in ("in_proj", "conv_w", "conv_b", "x_proj",
                                    "dt_proj", "dt_bias", "A_log", "D",
@@ -125,20 +162,25 @@ LAYER_TOL = 2e-5        # single functions: tests/test_torch_models.py
 TIMEOUT = 420
 
 
+MOE_KEYS = ("ep_shard", "num_experts")     # changes of cfg.moe
+
+
 def _axes(shape):
     return AXES if len(shape) == 2 else AXES3
 
 
-def _leaf_kind(cfg, key: str):
-    """The kind whose plan splits ``key`` (None: a leaf no kind splits)."""
+def _leaf_kind(cfg, key: str, kinds=()):
+    """The kind whose plan splits ``key`` (None: a leaf no kind splits);
+    an expert leaf's "expert_ffn" where ``kinds`` has it."""
     parts = key.split(".")
     if parts[0] != "groups":
         return "vocab" if key in KIND_LEAVES["vocab"] else None
     layer = cfg.pattern[int(parts[2][1:])]
     if parts[3] == "mixer" and layer.mixer in MIXER_LEAVES:
         return MIXER_LEAVES[layer.mixer].get(parts[4])
-    if parts[3] == "ffn" and layer.ffn != "mlp":
-        return None                     # an MoE layer's leaves
+    if parts[3] == "ffn" and layer.ffn == "moe":
+        options = MOE_LEAVES[parts[4]]
+        return options[-1] if options[-1] in kinds else options[0]
     return next((kind for kind, ends in KIND_LEAVES.items()
                  if any(key.endswith(e) for e in ends)), None)
 
@@ -154,11 +196,12 @@ def _cfg(arch: str, over: dict, pkg: str):
     import dataclasses
     mod = __import__(f"{pkg}.configs", fromlist=["get_config"])
     cfg = mod.reduce_for_smoke(mod.get_config(arch))
-    if "ep_shard" in over:
-        cfg = dataclasses.replace(
-            cfg, moe=dataclasses.replace(cfg.moe, ep_shard=over["ep_shard"]))
+    moe = {k: v for k, v in over.items() if k in MOE_KEYS}
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
     return dataclasses.replace(
-        cfg, **{k: v for k, v in over.items() if k != "ep_shard"})
+        cfg, **{k: v for k, v in over.items() if k not in MOE_KEYS})
 
 
 def _ce_inputs():
@@ -344,6 +387,26 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
         def __exit__(self, *exc):
             steps_mod.compressed_pod_allreduce = self.saved
 
+    class record_routes:
+        """Each MoE call's routing decisions: (expert ids, slots, keep)."""
+
+        def __enter__(self):
+            from repro_torch.models import moe
+            self.saved, self.calls = moe.route, []
+
+            def route(*a, **k):
+                out = self.saved(*a, **k)
+                self.calls.append([t.detach().numpy().copy()
+                                   for t in out[2:]])
+                return out
+
+            moe.route = route
+            return self
+
+        def __exit__(self, *exc):
+            from repro_torch.models import moe
+            moe.route = self.saved
+
     def mixer_layers(mesh, m):
         """Each recurrent mixer of MIXERS on this rank's views of a whole
         layer (the plan's chunks and gate views), inside the plan's
@@ -451,6 +514,12 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
                                                           "train"))
             plain = init_state(plain_bundle, arch, over)
             plain_chunks(f"{name}/plain/init", plain, bundle)
+        plain_routes = None
+        if name in ROUTED:      # the mesh-free step's routing decisions
+            free = make_step_bundle(cfg, ShapeCfg("t", S, B, "train"))
+            with record_routes() as rr:
+                free.step_fn(init_state(free, arch, over), get(0))
+            plain_routes = rr.calls
         if name in QUANTIZED:
             # the mesh-free gradient of this pod's rows (one microbatch,
             # one rank on "data"), from the same parameters
@@ -467,8 +536,15 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
                 res[f"{name}/pod_grad/{k}"] = t.numpy()
         for i in range(STEPS):
             keep = i == 0 and name not in QUANTIZED
-            with record_views(state, keep) as rec, record_quantizer() as q:
+            with record_views(state, keep) as rec, \
+                    record_quantizer() as q, record_routes() as rr:
                 state, mt = bundle.step_fn(state, get(i))
+            if plain_routes is not None and i == 0:
+                res[f"{name}/routes"] = np.array(json.dumps({
+                    "calls": len(rr.calls), "plain_calls": len(plain_routes),
+                    "equal": [all(np.array_equal(a, b) for a, b in
+                                  zip(got, want)) for got, want in
+                              zip(rr.calls, plain_routes)]}))
             if name in QUANTIZED and i == 0:
                 for k, t in q.trees[0].items():
                     res[f"{name}/quantizer_in/{k}"] = t
@@ -506,6 +582,51 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
         g = torch.linspace(0.5, 1.5, ce.numel()).reshape(ce.shape)
         res["ce/loss"] = ce.detach().numpy()
         res["ce/grad"] = torch.autograd.grad(ce, mine, g)[0].numpy()
+
+    # --- view_as: c10d gathers, no redistribution (ROADMAP C18) -------------
+    m22 = make_mesh((2, 2), AXES, "cpu")
+    if m22.get_coordinate() is not None:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        full = torch.arange(8 * 12, dtype=torch.float32).reshape(8, 12)
+        report = {"equal": [], "raised": []}
+        calls = []
+        saved = DTensor.redistribute
+
+        def redistribute(*a, **k):
+            calls.append(1)
+            return saved(*a, **k)
+
+        DTensor.redistribute = redistribute
+        try:
+            # (stored placements, asked placements): gathered values
+            for have, want in (
+                    ([Shard(0), Shard(1)], None),
+                    ([Shard(0), Shard(1)], [Shard(0), Replicate()]),
+                    ([Shard(0), Shard(0)], None),
+                    ([Shard(0), Shard(0)], [Shard(0), Replicate()]),
+                    ([Shard(1), Replicate()], None)):
+                dt = DTensor.from_local(local_chunk(full, m22, have).clone(),
+                                        m22, have, run_check=False)
+                want_full = local_chunk(full, m22, want or
+                                        [Replicate(), Replicate()])
+                report["equal"].append(bool(torch.equal(
+                    view_as(dt, want), want_full)))
+            # a dim that cannot be gathered: another shard, or the major
+            # of two axes on one dim while the minor keeps its shard
+            for have, want in (([Shard(0), Shard(1)], [Shard(1), Shard(1)]),
+                               ([Shard(0), Shard(0)], [Replicate(),
+                                                       Shard(0)])):
+                dt = DTensor.from_local(local_chunk(full, m22, have).clone(),
+                                        m22, have, run_check=False)
+                try:
+                    view_as(dt, want)
+                    report["raised"].append(False)
+                except ValueError:
+                    report["raised"].append(True)
+        finally:
+            DTensor.redistribute = saved
+        report["redistributions"] = len(calls)
+        res["view_as"] = np.array(json.dumps(report))
 
     # --- each split recurrent mixer against its whole layer -----------------
     for shape in MIXER_MESHES:
@@ -685,7 +806,8 @@ def test_tp_views_are_model_chunks(sides, name):
         tp_leaves = json.loads(str(got[f"{name}/tp_leaves"]))
         for i in range(STEPS):
             views = json.loads(str(got[f"{name}/views{i}"]))
-            want = sorted(k for k in views if _leaf_kind(cfg, k) in kinds)
+            want = sorted(k for k in views
+                          if _leaf_kind(cfg, k, kinds) in kinds)
             assert tp_leaves == want and want
             for key, (local, whole, placements, gate) in views.items():
                 if key in tp_leaves:
@@ -744,6 +866,36 @@ def test_gate_views_and_gradient_chunks(sides, name):
             ratios.append(mom[big] / g[big])
         ratios = np.concatenate(ratios)
         np.testing.assert_allclose(ratios, ratios[0], rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ROUTED)
+def test_routing_decisions_match_mesh_free_step(sides, name):
+    """Where the plan splits the MoE layer (its experts, their ``d_ff``,
+    the shared expert) every rank routes the whole (micro)batch, from the
+    router's columns gathered over ``model`` under "expert": each MoE
+    call's expert ids, slots and keep in the first step equal the
+    mesh-free step's exactly (C7's rules kept: the padded rows compete,
+    the capacity is the whole batch's)."""
+    _, ranks = sides
+    for got in _in_mesh(ranks, name):
+        rep = json.loads(str(got[f"{name}/routes"]))
+        assert rep["calls"] == rep["plain_calls"] > 0
+        assert len(rep["equal"]) == rep["calls"] and all(rep["equal"]), rep
+
+
+def test_view_as_gathers_by_c10d(sides):
+    """A compute view that is not the leaf's own storage is gathered by
+    c10d all-gathers, the minor mesh dim first (ROADMAP C18): on the
+    (2, 2) mesh a DTensor split over both dims, or over both on one dim,
+    gathers whole or keeps its major shard, equal to the chunks of the
+    whole value; a placement it cannot reach by gathering raises; no
+    DTensor is redistributed."""
+    _, ranks = sides
+    for got in ranks:
+        rep = json.loads(str(got["view_as"]))
+        assert rep["equal"] == [True] * 5, rep
+        assert rep["raised"] == [True, True], rep
+        assert rep["redistributions"] == 0, rep
 
 
 def test_vocab_parallel_ce_matches_logsumexp(sides):
@@ -814,9 +966,18 @@ PLANS = [
     ("gemma2-2b", (1, 2), {}, ALL),
     ("gemma2-2b", (16, 16), {}, {"ffn", "vocab"}),
     ("granite-34b", (16, 16), {}, {"heads", "ffn", "vocab"}),   # MQA
-    ("granite-moe-3b-a800m", (16, 8), {}, {"heads", "kv_heads"}),
-    ("granite-moe-3b-a800m", (1, 1), {}, {"heads", "kv_heads", "vocab"}),
-    ("jamba-v0.1-52b", (16, 16), {}, {"heads", "ffn", "mamba", "vocab"}),
+    # 40 experts over 8 ranks, 5 a rank
+    ("granite-moe-3b-a800m", (16, 8), {}, {"heads", "kv_heads", "expert"}),
+    ("granite-moe-3b-a800m", (1, 1), {}, {"heads", "kv_heads", "vocab",
+                                          "expert"}),
+    # 40 experts do not divide 16: their d_ff (512) does
+    ("granite-moe-3b-a800m", (16, 16), {}, {"expert_ffn"}),
+    ("jamba-v0.1-52b", (16, 16), {}, {"heads", "ffn", "mamba", "vocab",
+                                      "expert"}),
+    # 40 heads do not divide 16; 128 experts, their shared expert's d_ff
+    # (8192) and the dense layers' do
+    ("llama4-maverick-400b-a17b", (16, 16), {}, {"ffn", "vocab", "expert",
+                                                 "shared"}),
     # 4 heads: neither mixer splits over 16; the sLSTM's post-FFN (1024)
     # does
     ("xlstm-125m", (16, 16), {}, {"slstm_ffn", "vocab"}),
@@ -846,7 +1007,7 @@ def test_tp_plan_of_full_configs(arch, shape, over, kinds):
     plan, shapes = _plan(arch, shape, over)
     assert plan.kinds == kinds
     cfg = dataclasses.replace(get_config(arch), **over)
-    want = {k for k in shapes if _leaf_kind(cfg, k) in kinds}
+    want = {k for k in shapes if _leaf_kind(cfg, k, kinds) in kinds}
     assert set(plan.views) == want
     assert plan.gates == {k: _gate_blocks(cfg, k) for k in want
                           if _gate_blocks(cfg, k)}

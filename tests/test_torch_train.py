@@ -73,7 +73,11 @@ FWD_CASES = [
     (1, 128, 4, 2, 32, 0, 50.0),
     (1, 96, 2, 2, 16, 24, 30.0),
 ]
-ARCHS = ["qwen2-7b", "gemma2-2b", "xlstm-125m"]
+# musicgen-large and pixtral-12b are fed float embeddings (batch 2 x 8):
+# their embedding table is a leaf the loss never reads (ROADMAP C17)
+ARCHS = ["qwen2-7b", "gemma2-2b", "xlstm-125m", "musicgen-large",
+         "pixtral-12b"]
+EMBEDDINGS_B, EMBEDDINGS_S = 2, 8
 WALL_KEYS = ("wall_s", "profile_wall")
 
 
@@ -131,9 +135,17 @@ def test_flash_attention_grads_only_where_asked():
 # ---------------------------------------------------------------------------
 
 
-def batch_arrays(vocab, B=2, S=64, seed=0):
+def batch_arrays(cfg, B=2, S=64, seed=0):
+    """Tokens, or for a config fed embeddings float32 embeddings of
+    EMBEDDINGS_B x EMBEDDINGS_S, with their labels."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, vocab, (B, S + 1), dtype=np.int32)
+    if cfg.input_mode == "embeddings":
+        B, S = EMBEDDINGS_B, EMBEDDINGS_S
+        return {"inputs": rng.normal(0, 1, (B, S, cfg.d_model)).astype(
+                    np.float32),
+                "labels": rng.integers(0, cfg.vocab_size, (B, S),
+                                       dtype=np.int32)}
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1), dtype=np.int32)
     return {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
 
 
@@ -143,7 +155,7 @@ def reference_loss(arch, seed=0, seq_chunk=512, **over):
     jcfg = dataclasses.replace(jreduce(jget(arch)), **over)
     jm = JModel(jcfg)
     tree = jm.init_params(jax.random.key(seed))
-    batch = batch_arrays(jcfg.vocab_size, seed=seed)
+    batch = batch_arrays(jcfg, seed=seed)
     (loss, metrics), grads = jax.value_and_grad(
         lambda p: jm.loss(p, {k: jnp.asarray(v) for k, v in batch.items()},
                           seq_chunk=seq_chunk), has_aux=True)(tree)
@@ -157,9 +169,12 @@ def reference_loss(arch, seed=0, seq_chunk=512, **over):
 
 
 def port_grads(model, batch, seq_chunk=512):
+    """As the train step takes them (``train.steps._grads_of``): a leaf
+    the loss does not read gets a zero gradient."""
     params = dict(model.named_parameters())
     loss, metrics = model.loss(batch, seq_chunk=seq_chunk)
-    grads = torch.autograd.grad(loss, list(params.values()))
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True, materialize_grads=True)
     return loss, metrics, dict(zip(params, grads))
 
 
@@ -189,6 +204,47 @@ def test_loss_and_grads_match_reference(arch):
         for key, g in by_remat[remat].items():
             torch.testing.assert_close(g, by_remat["none"][key], atol=0,
                                        rtol=0, msg=f"{remat}: {key}")
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "pixtral-12b"])
+def test_train_step_with_embeddings_matches_reference(arch):
+    """The mesh-free train bundle of a config fed embeddings (ROADMAP
+    C17): one step from the reference's initial state on float
+    embeddings of batch 2 x 8 gives the reference's loss (rtol 1e-5) and
+    leaves the embedding table, which the loss does not read, as the
+    reference's step leaves it (its zero gradient takes no Adam step and
+    one step of weight decay rounds away in float32), with zero moments;
+    every other leaf moves."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.train import make_step_bundle
+    jcfg = jreduce(jget(arch))
+    cfg = reduce_for_smoke(get_config(arch))
+    batch = batch_arrays(cfg)
+    B, S = batch["labels"].shape
+    jb = jbundle(jcfg, JShape("t", S, B, "train"))
+    jstate = jb.init_fn(jax.random.key(0))
+    init = to_np(jstate)
+    jstate, jm = jax.jit(jb.step_fn)(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    want = from_jax_state(cfg, to_np(jstate))
+    bundle = make_step_bundle(cfg, ShapeCfg("t", S, B, "train"))
+    state = bundle.init_fn(torch.Generator().manual_seed(0))
+    load_state(state, from_jax_state(cfg, init))
+    before = {k: t.clone() for k, t in state["params"].state_dict().items()}
+    state, m = bundle.step_fn(state, {k: torch.from_numpy(v)
+                                      for k, v in batch.items()})
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    after = state["params"].state_dict()
+    key = "embed.embedding"
+    assert torch.equal(after[key], before[key])
+    assert torch.equal(after[key], want["params"][key])
+    for part in ("m", "v"):
+        assert not state["opt"][part][key].any()
+        assert not want["opt"][part][key].any()
+    moved = [k for k in after if k != key and not torch.equal(after[k],
+                                                             before[k])]
+    assert sorted(moved) == sorted(k for k in after if k != key)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "gemma2-2b"])
