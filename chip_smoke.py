@@ -151,6 +151,17 @@ Phases, each of which raises on failure:
          of its pattern (2 of 48 layers: an MoE and a dense layer), the
          same serving check with the kinds expert and shared; both
          kernels held and timed at llama4's prefill and decode shapes.
+  (o)    sequence parallelism over ``model`` (``seq_shard``), on the
+         (1, 1) mesh of one NCCL rank, where its gathers and
+         reduce-scatters are identities: gemma2-2b at full width and
+         depth, one train step at 4 x 1024 through the mesh bundle with
+         seq_shard against the same step without it (the loss, every
+         gradient, parameter and moment bit for bit, through a host copy
+         of the first; 52 flash_attention launches in each); qwen2-7b
+         full, a 4 x 1024 prefill through the prefill bundle and 8 decode
+         steps with seq_shard against the same without it (the logits and
+         every cache leaf bit for bit; 28 flash_attention launches a
+         prefill, 28 flash_decode launches a decode step).
 
     python3 chip_smoke.py --parent DIR   # (m) also times DIR's bundles
 
@@ -3703,6 +3714,236 @@ def phase_n(rnd) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# (o) sequence parallelism over "model" (seq_shard) through the mesh step and
+#     the prefill bundle
+# ---------------------------------------------------------------------------
+
+# the kinds the plan splits on the (1, 1) mesh, with seq_shard or without
+O_KINDS = {"heads", "kv_heads", "ffn", "vocab"}
+
+
+def o_train() -> dict:
+    """gemma2-2b at full width and depth: one train step at TRAIN_B x
+    TRAIN_S through the mesh bundle on the (1, 1) mesh with ``seq_shard``
+    on (the plan marks the sequence split; on one rank its gathers and
+    reduce-scatters are identities) against the same step with it off,
+    from the same state and batch: the loss, every gradient (as
+    ``_accumulate`` returns them), every parameter and both moments, bit
+    for bit.  The two states do not fit on the card together: the first
+    run's results are copied to the host before the second starts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import make_step_bundle, steps
+    from repro_torch.train.steps import full_state
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    base = get_config(GEMMA)
+    shape = ShapeCfg("t", TRAIN_S, TRAIN_B, "train")
+    mesh = make_mesh((1, 1), ("data", "model"), DEV)
+    g = torch.Generator(device=DEV).manual_seed(9)
+    batch = {k: torch.randint(0, base.vocab_size, (TRAIN_B, TRAIN_S),
+                              generator=g, device=DEV)
+             for k in ("inputs", "labels")}
+    saved = steps._accumulate
+    runs, host, bad = [], None, []
+    for seq in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(base, seq_shard=seq)
+        bundle = make_step_bundle(cfg, shape, mesh)
+        if bundle.tp.seq != seq or bundle.tp.kinds != O_KINDS:
+            raise AssertionError(f"[o] train plan {bundle.tp}, expected "
+                                 f"{O_KINDS} with seq {seq}")
+        state = bundle.init_fn(torch.Generator(device=DEV).manual_seed(0))
+        grads = {}
+
+        def accumulate(*a):
+            out = saved(*a)
+            grads.update({k: t.detach().clone() for k, t in out[0].items()})
+            return out
+
+        steps._accumulate = accumulate
+        try:
+            fa.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = bundle.step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            steps._accumulate = saved
+        runs.append(dict(loss=metrics["loss"].detach().cpu(), wall=wall,
+                         peak=torch.cuda.max_memory_allocated() / 2**30,
+                         launches=fa.launches))
+        leaves = {**{f"grad/{k}": t for k, t in grads.items()},
+                  **dict(tree_items(full_state(state)))}
+        if host is None:            # the seq_shard step's, to the host
+            host = {k: t.cpu() for k, t in leaves.items()}
+        else:                       # the step without it against them
+            if leaves.keys() != host.keys():
+                bad.append("the leaves' keys")
+            bad += [k for k, t in leaves.items()
+                    if not torch.equal(t, host[k].to(DEV))]
+        del state, bundle, grads, metrics, leaves
+    seq_run, plain_run = runs
+    n_grads = sum(k.startswith("grad/") for k in host)
+    del host
+    if not torch.equal(seq_run["loss"], plain_run["loss"]) or \
+            not bool(torch.isfinite(seq_run["loss"])):
+        raise AssertionError(f"[o] train losses {seq_run['loss']} / "
+                             f"{plain_run['loss']}")
+    if bad or n_grads == 0:
+        raise AssertionError(f"[o] train step: {bad[:6]} differ")
+    per_step = base.n_layers * (1 if base.remat == "none" else 2)
+    if seq_run["launches"] != per_step or \
+            plain_run["launches"] != per_step:
+        raise AssertionError(f"[o] flash_attention launches in the step "
+                             f"{seq_run['launches']} (without seq_shard "
+                             f"{plain_run['launches']}), expected "
+                             f"{per_step}")
+    log(f"[o] {gpu_line()}: {GEMMA} full width and depth ({base.n_layers} "
+        f"layers, remat {base.remat}): one train step ({TRAIN_B}, "
+        f"{TRAIN_S}) through the mesh bundle on the (1, 1) mesh with "
+        f"seq_shard (plan {sorted(O_KINDS)}, sequence split): loss "
+        f"{float(seq_run['loss'])}, {n_grads} gradients, every parameter "
+        f"and both moments equal the step without seq_shard bit for bit; "
+        f"{per_step} flash_attention launches in each; walls seq_shard "
+        f"{seq_run['wall']:.3f} s, without {plain_run['wall']:.3f} s (the "
+        f"process's first step of each config); peak device memory "
+        f"{seq_run['peak']:.3f} / {plain_run['peak']:.3f} GiB")
+    return dict(step_s=seq_run["wall"], plain_step_s=plain_run["wall"],
+                launches=seq_run["launches"], peak_gib=seq_run["peak"])
+
+
+def o_serve() -> dict:
+    """qwen2-7b at full width and depth: one prefill at M_B x M_S through
+    the prefill bundle on the (1, 1) mesh with ``seq_shard`` on, then
+    M_STEPS decode steps (which no ``model`` axis of more than one rank
+    would split by sequence), against the same run with it off: the
+    logits of the prefill and of every step, the prefill's cache leaves
+    and every cache leaf after the last step, bit for bit; 28
+    flash_attention launches a prefill and 28 flash_decode launches a
+    decode step in each run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import make_step_bundle
+    from repro_torch.train.steps import place_params
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = get_config(QWEN_ARCH)
+    model = Model(base, device=DEV).init_params(
+        torch.Generator(device=DEV).manual_seed(0))
+    mesh = make_mesh((1, 1), ("data", "model"), DEV)
+    g = torch.Generator(device=DEV).manual_seed(10)
+    toks = torch.randint(0, base.vocab_size, (M_B, M_S), generator=g,
+                         device=DEV)
+    steps_in = [torch.randint(0, base.vocab_size, (M_B, 1), generator=g,
+                              device=DEV) for _ in range(M_STEPS)]
+    n_attn = sum(layer.mixer in ("attn", "attn_local")
+                 for layer in base.layers())
+    runs = []
+    for seq in (True, False):
+        cfg = dataclasses.replace(base, seq_shard=seq)
+        pb = make_step_bundle(cfg, ShapeCfg("p", M_S, M_B, "prefill"), mesh)
+        db = make_step_bundle(cfg, ShapeCfg("d", M_S + M_STEPS, M_B,
+                                            "decode"), mesh)
+        if pb.tp.seq != seq or pb.tp.kinds != O_KINDS or \
+                db.tp.kinds != O_KINDS:
+            raise AssertionError(f"[o] serve plans {pb.tp} / {db.tp}")
+        params = place_params(cfg, {k: p.detach() for k, p in
+                                    model.named_parameters()},
+                              pb.in_shardings[0])
+        fa.launches = fd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = pb.step_fn(params, toks)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        p_launches = (fa.launches, fd.launches)
+        out = [logits.to_local().clone()]
+        out += [t.clone() for _, t in tree_items(local_tree(cache))]
+        dcache, _ = decode_cache(model, local_tree(cache), db.in_shardings[1])
+        del cache, logits
+        walls, d_launches = [], []
+        for i, pos in enumerate(range(M_S, M_S + M_STEPS)):
+            fa.launches = fd.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, dcache = db.step_fn(params, dcache, steps_in[i], pos)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            d_launches.append((fa.launches, fd.launches))
+            out.append(logits.to_local().clone())
+        out += [t.to_local() for _, t in tree_items(dcache)]
+        if not bool(torch.isfinite(out[0]).all()):
+            raise AssertionError("[o] non-finite prefill logits")
+        runs.append(dict(out=out, prefill_s=prefill_s, walls=walls,
+                         p_launches=p_launches, d_launches=d_launches))
+        del dcache, params
+    (a, b) = runs
+    bad = [i for i, (x, y) in enumerate(zip(a["out"], b["out"]))
+           if not torch.equal(x, y)]
+    if bad or len(a["out"]) != len(b["out"]):
+        raise AssertionError(f"[o] serve: {len(bad)} of {len(a['out'])} "
+                             f"logits and cache leaves differ with "
+                             f"seq_shard (first {bad[:4]})")
+    for r in runs:
+        if r["p_launches"] != (n_attn, 0) or \
+                r["d_launches"] != [(0, n_attn)] * M_STEPS:
+            raise AssertionError(f"[o] serve launches prefill "
+                                 f"{r['p_launches']}, decode "
+                                 f"{r['d_launches']}, expected "
+                                 f"({n_attn}, 0) / (0, {n_attn})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_leaves = (len(a["out"]) - 1 - M_STEPS) // 2
+    log(f"[o] {gpu_line()}: {QWEN_ARCH} full width and depth "
+        f"({base.n_layers} layers) through the prefill and decode bundles on "
+        f"the (1, 1) mesh with seq_shard: prefill ({M_B}, {M_S}) "
+        f"{a['prefill_s']:.3f} s (without seq_shard {b['prefill_s']:.3f} "
+        f"s), {M_STEPS} decode steps at pos {M_S}-{M_S + M_STEPS - 1}, "
+        f"walls {[round(w, 4) for w in a['walls']]} s (without "
+        f"{[round(w, 4) for w in b['walls']]} s); the logits of the "
+        f"prefill and of each step, the prefill's {n_leaves} cache leaves "
+        f"and every leaf after the last step equal the run without "
+        f"seq_shard bit for bit; launches prefill {a['p_launches']}, a "
+        f"decode step {a['d_launches'][0]} (flash_attention, "
+        f"flash_decode); peak device memory {peak:.3f} GiB")
+    result = dict(prefill_s=a["prefill_s"], walls=a["walls"],
+                  peak_gib=peak,
+                  launches={"flash_attention": a["p_launches"][0],
+                            "flash_decode": sum(d[1] for d in
+                                                a["d_launches"])})
+    del model, runs, a, b
+    return result
+
+
+def phase_o() -> dict:
+    """The slice's path: sequence parallelism over ``model`` on one NCCL
+    rank's (1, 1) mesh, gemma2-2b's train step and qwen2-7b's prefill
+    bundle and decode steps, bit for bit against the same runs without
+    ``seq_shard``."""
+    import torch
+    t0 = time.perf_counter()
+    with nccl_rank():
+        out = {"train": o_train()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["serve"] = o_serve()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[o] phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3730,6 +3971,7 @@ def main() -> int:
     phase_l(serve_bundle)
     recurrent = phase_m()
     moe_tp = phase_n(rnd)
+    seq = phase_o()
     kernels = []
     for name, src, replaces, design in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -3780,6 +4022,13 @@ def main() -> int:
         if name == "flash_attention":
             sb["train_granite_moe_expert_tp"] = {
                 "launches": moe_tp["train"]["launches"]}
+            # sequence parallelism (o): gemma2-2b's train step
+            sb["train_gemma2_seq_shard"] = {
+                "launches": seq["train"]["launches"]}
+        # and qwen2-7b's prefill (flash_attention) and decode steps
+        # (flash_decode) under seq_shard
+        sb["serve_bundle_seq_shard"] = {
+            "launches": seq["serve"]["launches"][name]}
         # serving the MoE (h) and hybrid (i) paths: their launches, and the
         # kernel checked and timed at their shapes (hd=64 G=3; hd=128 G=4)
         kernels.append({"name": name, "route": "cuda", "source": src,

@@ -25,6 +25,17 @@ gradients between ranks.  Two cases need their own gradients:
   back as an all-gather (:class:`_ReduceScatterRows`); a mean of
   per-rank scalars passes its gradient as it is (:class:`_MeanOver`).
 
+- Over ``model`` under sequence parallelism (``seq_shard``) the residual
+  stream holds each rank's positions, dim 1 of (B, S, D): a sublayer that
+  the ranks split gathers them (:func:`gather_seq`, an all-gather whose
+  gradient is a reduce-scatter: Megatron's g of sequence parallelism) and
+  its partial outputs are reduce-scattered back to each rank's positions
+  (:func:`reduce_scatter_seq`, whose gradient is an all-gather: Megatron's
+  g-bar).  A sublayer that every rank computes whole gathers them without
+  a sum in its gradient (:func:`gather_whole`: every rank's gradient of
+  the gathered input is already whole) and keeps the rank's positions of
+  its output (:func:`scatter_to`, whose gradient gathers the ranks').
+
 A group of ``None`` stands for one rank: the functions are then
 identities that return their input, with no copy.
 """
@@ -151,6 +162,22 @@ class _ReduceScatterRows(torch.autograd.Function):
         return gathered(g.contiguous(), ctx.group, 0), None
 
 
+class _GatherWhole(torch.autograd.Function):
+    """The ranks' blocks of ``dim`` side by side, in rank order; the
+    gradient is this rank's block (every rank's gradient of the gathered
+    value is the same whole)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.lo = dist.get_rank(group) * ctx.n
+        return gathered(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.lo, ctx.n), None, None
+
+
 class _MeanOver(torch.autograd.Function):
     """The mean over the groups' ranks of a scalar that each rank computes
     from its own rows; the gradient passes as it is (each rank's loss holds
@@ -272,6 +299,31 @@ class _VocabParallelCE(torch.autograd.Function):
         d.scatter_add_(-1, ids[..., None],
                        torch.where(mine, -g, 0.0)[..., None])
         return d, None, None, None
+
+
+def gather_seq(x, group):
+    """The ranks' positions of ``x`` (B, S_l, D) side by side, (B, S, D);
+    the gradient is summed over the group and each rank keeps its
+    positions (a reduce-scatter): before a sublayer the ranks split."""
+    if group is None:
+        return x
+    return _GatherRows.apply(x.transpose(0, 1), group).transpose(0, 1)
+
+
+def reduce_scatter_seq(x, group):
+    """This rank's positions (its block of dim 1) of the sum of ``x``
+    (B, S, D) over the group; the gradient is the ranks' positions
+    gathered: after a sublayer the ranks split."""
+    if group is None:
+        return x
+    return _ReduceScatterRows.apply(x.transpose(0, 1),
+                                    group).transpose(0, 1)
+
+
+def gather_whole(x, group, dim: int = 1):
+    """The ranks' blocks of ``dim`` side by side, the gradient this rank's
+    block: before a sublayer that every rank computes whole."""
+    return x if group is None else _GatherWhole.apply(x, group, dim)
 
 
 def vocab_parallel_ce(logits, labels, lo: int, group):

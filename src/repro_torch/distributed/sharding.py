@@ -28,9 +28,18 @@ and sLSTM mixers whose ``d_inner`` and heads do, compute on each rank's
 chunk of their leaves (Megatron's column- and row-parallel products),
 as do the MoE layers' experts (by experts, or by their ``d_ff`` where the
 experts do not divide ``model``) and shared expert.  Under ``seq_shard``
-every layer still computes whole on every ``model`` rank (ROADMAP A11c).
-The mesh step hands the plan to the model through
-:class:`activation_sharding`, and the layers ask :func:`current_tp`.
+(``act_seq`` on ``model``) the same kinds split, and the residual stream
+between the sublayers holds each rank's S/m positions (Megatron's
+sequence parallelism, what XLA derives for the reference from the
+residual's constraint): a split sublayer gathers the positions before its
+column-parallel products and reduce-scatters its row-parallel outputs
+back to them, a whole one gathers them and keeps its own
+(:func:`sublayer_in`, :func:`sublayer_out`).  A call splits the sequence
+only where its length divides ``model``, as the reference's resolution
+drops ``act_seq`` from a dim it cannot divide: a decode step runs as
+plain tensor parallelism.  The mesh step hands the plan to the model
+through :class:`activation_sharding`, and the layers ask
+:func:`current_tp` and :func:`current_seq`.
 The serving bundles also tell the attention layers whether the decode
 cache is split by sequence over ``model`` (:func:`current_cache_seq`:
 ``decode_cache_rules`` of ``train/steps.py`` put ``cache_seq`` there).
@@ -39,13 +48,16 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.distributed.collectives import gathered
+from repro_torch.distributed.collectives import (
+    copy_to, gather_seq, gather_whole, gathered, reduce_from,
+    reduce_scatter_seq, scatter_to,
+)
 from repro_torch.launch.mesh import mesh_axis_sizes
 
 
@@ -358,12 +370,16 @@ class TPPlan:
     reference stores them, rank r holding the r-th contiguous chunk of
     the whole dim, but rank r computes on the r-th chunk of each block
     (:func:`gate_view`), and its gradient goes back to the storage chunk
-    (:func:`gate_chunk`).  On one rank the two are the same."""
+    (:func:`gate_chunk`).  On one rank the two are the same.  ``seq``:
+    the activations' sequence is split over ``model`` (``seq_shard``),
+    where a call's sequence length divides the ``model`` size (see
+    :class:`activation_sharding`)."""
 
     size: int                   # ranks on "model" (0: no such axis)
     kinds: frozenset
     views: dict
     gates: dict
+    seq: bool = False
 
     def placements(self, key: str, names) -> Optional[list]:
         """The DTensor placements of ``key``'s storage chunk on a mesh
@@ -437,7 +453,8 @@ def tp_plan(cfg, sizes: dict, param_axes: dict, specs: dict) -> TPPlan:
     needs "heads".  A kind that does not split computes whole on every
     ``model`` rank.  A ``model`` axis of one rank splits every kind
     present (the same code runs, its collectives identities).  Under
-    ``seq_shard`` nothing is split."""
+    ``seq_shard`` the same kinds split, and the plan marks the sequence
+    split (``seq``)."""
     m = sizes.get("model", 0)
     leaves: dict = {}
     gates: dict = {}
@@ -454,14 +471,14 @@ def tp_plan(cfg, sizes: dict, param_axes: dict, specs: dict) -> TPPlan:
         return d < len(spec) and spec[d] == "model"
 
     kinds = {kind for kind, dims in leaves.items()
-             if m and not cfg.seq_shard
-             and all(n % m == 0 for n in _tp_counts(cfg, kind))
+             if m and all(n % m == 0 for n in _tp_counts(cfg, kind))
              and all(stored_on_model(k, d) for k, d in dims.items())}
     if "heads" not in kinds:
         kinds.discard("kv_heads")
     views = {k: d for kind in sorted(kinds) for k, d in leaves[kind].items()}
     return TPPlan(m, frozenset(kinds), views,
-                  {k: n for k, n in gates.items() if k in views})
+                  {k: n for k, n in gates.items() if k in views},
+                  bool(m) and bool(getattr(cfg, "seq_shard", False)))
 
 
 def gate_view(whole: torch.Tensor, dim: int, gates: int, rank: int,
@@ -523,7 +540,16 @@ def axis_groups(mesh, axes) -> list:
 # Activation constraints (ambient, set by the mesh train step)
 # ---------------------------------------------------------------------------
 
-_ACT_CTX: list = []  # stack of (mesh, rules, tp plan, TPRank, cache seq)
+class _Ctx(NamedTuple):
+    mesh: object
+    rules: dict
+    tp: Optional[TPPlan]
+    rank: Optional[TPRank]          # where the plan splits a kind
+    cache_seq: Optional[TPRank]     # the decode cache split by sequence
+    seq: Optional[TPRank]           # the activations split by sequence
+
+
+_ACT_CTX: list = []  # stack of _Ctx
 
 
 class activation_sharding:
@@ -534,10 +560,14 @@ class activation_sharding:
     code.  ``exclude`` drops mesh axes from every rule: the compressed step
     runs each pod's gradients on their own, as the reference's pod-manual
     region does.  ``cache_seq``: the decode cache's sequence is split over
-    ``model`` (the serving bundles; :func:`current_cache_seq`)."""
+    ``model`` (the serving bundles; :func:`current_cache_seq`).
+    ``seq_len``: the call's sequence length; where the plan splits the
+    sequence (``tp.seq``) and ``seq_len`` divides the ``model`` size, the
+    residual stream holds this rank's positions (:func:`current_seq`)."""
 
     def __init__(self, mesh, cfg, exclude: tuple = (),
-                 tp: Optional[TPPlan] = None, cache_seq: bool = False):
+                 tp: Optional[TPPlan] = None, cache_seq: bool = False,
+                 seq_len: Optional[int] = None):
         if mesh is None:
             self.entry = None
         else:
@@ -546,13 +576,16 @@ class activation_sharding:
                 rules = {k: tuple(a for a in v if a not in exclude)
                          for k, v in rules.items()}
             split = tp is not None and bool(tp.kinds)
+            m = mesh_axis_sizes(mesh).get("model", 0)
+            seq = (tp is not None and tp.seq and seq_len is not None
+                   and seq_len % m == 0)
             here = None
-            if split or cache_seq:
-                here = TPRank(mesh.get_group("model")
-                              if mesh_axis_sizes(mesh)["model"] > 1
-                              else None, mesh.get_local_rank("model"))
-            self.entry = (mesh, rules, tp, here if split else None,
-                          here if cache_seq else None)
+            if split or cache_seq or seq:
+                here = TPRank(mesh.get_group("model") if m > 1 else None,
+                              mesh.get_local_rank("model"))
+            self.entry = _Ctx(mesh, rules, tp, here if split else None,
+                              here if cache_seq else None,
+                              here if seq else None)
 
     def __enter__(self):
         if self.entry is not None:
@@ -567,13 +600,13 @@ class activation_sharding:
 
 def current_mesh():
     """The mesh of the innermost activation-sharding context (or None)."""
-    return _ACT_CTX[-1][0] if _ACT_CTX else None
+    return _ACT_CTX[-1].mesh if _ACT_CTX else None
 
 
 def current_rules() -> dict:
     """The rules of the innermost activation-sharding context ({} if
     none)."""
-    return _ACT_CTX[-1][1] if _ACT_CTX else {}
+    return _ACT_CTX[-1].rules if _ACT_CTX else {}
 
 
 def current_tp(kind: str) -> Optional[TPRank]:
@@ -582,8 +615,8 @@ def current_tp(kind: str) -> Optional[TPRank]:
     otherwise (no context, no plan, or the kind computes whole)."""
     if not _ACT_CTX:
         return None
-    _, _, tp, rank, _ = _ACT_CTX[-1]
-    return rank if tp is not None and kind in tp.kinds else None
+    ctx = _ACT_CTX[-1]
+    return ctx.rank if ctx.tp is not None and kind in ctx.tp.kinds else None
 
 
 def current_cache_seq() -> Optional[TPRank]:
@@ -591,7 +624,65 @@ def current_cache_seq() -> Optional[TPRank]:
     cache is split by sequence over ``model`` (this rank holds keys
     ``rank * S_l .. (rank + 1) * S_l - 1`` of every KV head); None
     otherwise."""
-    return _ACT_CTX[-1][4] if _ACT_CTX else None
+    return _ACT_CTX[-1].cache_seq if _ACT_CTX else None
+
+
+def current_seq() -> Optional[TPRank]:
+    """This rank's place on ``model`` when the innermost context splits
+    the activations' sequence over ``model`` (the residual stream holds
+    positions ``rank * S_l .. (rank + 1) * S_l - 1``); None otherwise."""
+    return _ACT_CTX[-1].seq if _ACT_CTX else None
+
+
+def seq_parts() -> int:
+    """How many parts the activations' sequence is split into (1: not
+    split)."""
+    seq = current_seq()
+    return 1 if seq is None or seq.group is None else \
+        dist.get_world_size(seq.group)
+
+
+def sublayer_in(x, tp: Optional[TPRank]):
+    """The input of a sublayer from the residual stream ``x`` (B, S, D):
+    with ``tp`` (the plan splits the sublayer: each rank computes its
+    share of the whole sequence, and the input's gradient is the sum of
+    the ranks' parts) Megatron's f, or under the sequence split the
+    positions gathered (their gradient reduce-scattered); without it (the
+    sublayer computes whole on every rank) ``x`` itself, or under the
+    sequence split the positions gathered with no sum in the gradient."""
+    seq = current_seq()
+    if seq is None:
+        return x if tp is None else copy_to(x, tp.group)
+    return (gather_whole(x, seq.group) if tp is None
+            else gather_seq(x, seq.group))
+
+
+def sublayer_out(x, tp: Optional[TPRank]):
+    """The output of a sublayer back to the residual stream: with ``tp``
+    (``x`` is this rank's part of the sum) Megatron's g, or under the
+    sequence split the sum reduce-scattered to the rank's positions;
+    without it (``x`` is whole) ``x`` itself, or under the sequence split
+    the rank's positions (the gradient gathered)."""
+    seq = current_seq()
+    if seq is None:
+        return x if tp is None else reduce_from(x, tp.group)
+    return (scatter_to(x, seq.group, 1) if tp is None
+            else reduce_scatter_seq(x, seq.group))
+
+
+def seq_param(p):
+    """A replicated leaf that a rank applies to its own positions only
+    (the norms of the residual stream under the sequence split): its
+    gradient is summed over ``model``; otherwise ``p`` itself."""
+    seq = current_seq()
+    return p if seq is None else copy_to(p, seq.group)
+
+
+def seq_whole(x):
+    """The residual stream ``x`` with every position (no gradient: the
+    prefill's last logits)."""
+    seq = current_seq()
+    return x if seq is None else gathered(x, seq.group, 1)
 
 
 def act_constrain(x, logical_axes: tuple):
@@ -605,7 +696,7 @@ def act_constrain(x, logical_axes: tuple):
     replicated."""
     if not _ACT_CTX or not isinstance(x, DTensor):
         return x
-    mesh, rules = _ACT_CTX[-1][:2]
+    mesh, rules = _ACT_CTX[-1].mesh, _ACT_CTX[-1].rules
     spec = resolve_spec(logical_axes, tuple(x.shape), rules, mesh)
     parts = list(spec) + [None] * (x.ndim - len(spec))
     if all(p is None for p in parts):

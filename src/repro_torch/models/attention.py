@@ -26,6 +26,11 @@ its columns too when the KV heads split as well ("kv_heads"); otherwise
 the rank computes, from the whole leaves, the KV heads its query heads
 read (query head h reads KV head h // G), and their gradient is summed
 over the ranks.  ``flash_attention`` then runs on the local heads.
+Under the sequence split (``seq_shard``) the layer gathers the residual
+stream's positions before its projections and reduce-scatters ``wo``'s
+partial output back to them (``sublayer_in`` / ``sublayer_out``), so the
+heads attend over the whole sequence and a prefill returns the whole
+sequence's K/V, as without it.
 
 Serving on a mesh (the prefill and decode bundles of ``train/steps.py``)
 keeps the decode cache split over ``model`` in one of two ways:
@@ -50,10 +55,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distributed.collectives import (
-    copy_to, gathered, reduce_from,
+from repro_torch.distributed.collectives import copy_to, gathered
+from repro_torch.distributed.sharding import (
+    current_cache_seq, current_tp, sublayer_in, sublayer_out,
 )
-from repro_torch.distributed.sharding import current_cache_seq, current_tp
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_decode import combine, partials
 from repro_torch.models.params import dense_init, dtype_of, zeros_init
@@ -247,13 +252,14 @@ def attn_apply(params, x, cfg, *, local: bool, positions=None,
     writes position ``cache_pos`` of ``cache`` in place and returns it.
     """
     cdt = dtype_of(cfg.compute_dtype)
-    B, S, _ = x.shape
     tp = current_tp("heads")
+    x = sublayer_in(x.to(cdt), tp)
+    B, S, _ = x.shape
     # serving with the query heads split and the KV heads not: the cache
     # holds every KV head (see the module doc)
     all_kv = (tp is not None and current_tp("kv_heads") is None
               and (cache is not None or return_kv))
-    q, k, v = _qkv(params, x.to(cdt), cfg, tp, all_kv=all_kv)
+    q, k, v = _qkv(params, x, cfg, tp, all_kv=all_kv)
 
     window = cfg.sliding_window if local else 0
 
@@ -290,7 +296,7 @@ def attn_apply(params, x, cfg, *, local: bool, positions=None,
         new_cache = cache
 
     out = out.reshape(B, S, -1).to(cdt) @ params["wo"].to(cdt)
-    return (out if tp is None else reduce_from(out, tp.group)), new_cache
+    return sublayer_out(out, tp), new_cache
 
 
 def _kv_read(rank: int, nh: int, cfg):
@@ -342,9 +348,10 @@ def _decode_every_kv_head(q, cache, pos: int, cfg, window: int, tp, seq):
 
 
 def _qkv(params, x, cfg, tp, *, all_kv: bool = False):
-    """q (B,S,NH,hd), k and v (B,S,KV,hd) of x (B,S,D) in the compute
-    dtype: every head, or with ``tp`` this rank's query heads and their
-    KV heads, or (``all_kv``) every KV head (see the module doc)."""
+    """q (B,S,NH,hd), k and v (B,S,KV,hd) of x (B,S,D), the sublayer's
+    input (``sublayer_in``), in the compute dtype: every head, or with
+    ``tp`` this rank's query heads and their KV heads, or (``all_kv``)
+    every KV head (see the module doc)."""
     B, S, _ = x.shape
     cdt, hd = x.dtype, cfg.head_dim_
     w = {n: params[n] for n in ("wq", "wk", "wv")}
@@ -352,7 +359,6 @@ def _qkv(params, x, cfg, tp, *, all_kv: bool = False):
         w.update({n: params[n] for n in ("bq", "bk", "bv")})
     read = None
     if tp is not None:
-        x = copy_to(x, tp.group)
         if current_tp("kv_heads") is None and not all_kv:
             cols, read = _kv_read(tp.rank, w["wq"].shape[1] // hd, cfg)
             for n in ("wk", "wv", "bk", "bv"):

@@ -9,18 +9,21 @@ Under the mesh step's tensor-parallel plan (``distributed.sharding``)
 the MLP and the embedding compute on this rank's chunk of their leaves:
 f before a column-parallel product, g after a row-parallel one or after
 the masked lookup of the rank's vocabulary rows
-(``distributed.collectives``).  The logit head computes the rank's
-vocabulary columns and gathers them over ``model`` (serving).
+(``distributed.collectives``); under the sequence split (``seq_shard``)
+the sequence all-gather and reduce-scatter in their place, and a whole
+embedding keeps the rank's positions (``sublayer_in``,
+``sublayer_out``).  The logit head computes the rank's vocabulary
+columns and gathers them over ``model`` (serving).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.collectives import (
-    copy_to, gathered, reduce_from,
+from repro_torch.distributed.collectives import gathered
+from repro_torch.distributed.sharding import (
+    current_tp, sublayer_in, sublayer_out,
 )
-from repro_torch.distributed.sharding import current_tp
 from repro_torch.models.params import (
     dense_init, dtype_of, embed_init, ones_init,
 )
@@ -67,20 +70,25 @@ def _act(name: str):
 
 
 def mlp(params, x, cfg, tp=None):
-    """With ``tp`` (a ``TPRank``: the leaves are this rank's ``d_ff``
-    columns of ``w_up``/``w_gate`` and rows of ``w_down``) the output is
-    summed over the ranks."""
+    """A sublayer on the residual stream ``x`` (B, S, D).  With ``tp`` (a
+    ``TPRank``: the leaves are this rank's ``d_ff`` columns of
+    ``w_up``/``w_gate`` and rows of ``w_down``) the output is summed over
+    the ranks (see ``sublayer_in`` / ``sublayer_out``)."""
     cdt = dtype_of(cfg.compute_dtype)
-    x = x.to(cdt)
-    if tp is not None:
-        x = copy_to(x, tp.group)
+    out = ffn(params, sublayer_in(x.to(cdt), tp), cfg)
+    return sublayer_out(out, tp)
+
+
+def ffn(params, x, cfg):
+    """The (gated) MLP's products on ``x`` (..., D), with no collective:
+    the MoE experts run it on their slot buffers."""
+    cdt = dtype_of(cfg.compute_dtype)
     up = x @ params["w_up"].to(cdt)
     if cfg.gated_mlp:
         h = _act(cfg.act)(x @ params["w_gate"].to(cdt)) * up
     else:
         h = _act(cfg.act)(up)
-    out = h @ params["w_down"].to(cdt)
-    return out if tp is None else reduce_from(out, tp.group)
+    return h @ params["w_down"].to(cdt)
 
 
 # ---------------------------------------------------------------------------
@@ -108,10 +116,9 @@ def embed(params, tokens, cfg):
         # the sum over the ranks holds each token's row once
         ids = tokens - tp.rank * table.shape[0]
         mine = (ids >= 0) & (ids < table.shape[0])
-        x = reduce_from(torch.where(
-            mine[..., None], table[ids.clamp(0, table.shape[0] - 1)], 0),
-            tp.group)
-    x = x.to(cdt)
+        x = torch.where(
+            mine[..., None], table[ids.clamp(0, table.shape[0] - 1)], 0)
+    x = sublayer_out(x, tp).to(cdt)
     if cfg.embed_scale:
         # the scale is rounded to the compute dtype first, as in the
         # reference (jnp.asarray(d ** 0.5, cdt))

@@ -46,7 +46,12 @@ experts (the router's columns gathered, as on the expert-parallel
 route, but at the capacity of the routed batch), "expert_ffn" every
 expert's ``d_ff`` columns, and "shared" the shared expert's, column-
 then row-parallel; the parts are summed over ``model``.  With a
-``model`` axis of one rank the code is the mesh-free code.
+``model`` axis of one rank the code is the mesh-free code.  Under the
+sequence split (``seq_shard``) the layer routes the gathered sequence:
+its input's positions are gathered over ``model`` (``sublayer_in``; once
+for the split experts and once more, with no sum in its gradient, for a
+router that computes whole), and each part of its output goes back to
+the rank's positions (``sublayer_out``).
 
 The collectives are the autograd functions of
 ``distributed/collectives.py``: Megatron's f and g over ``model``, and
@@ -63,10 +68,10 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.collectives import (
     _CopyTo, _GatherCols, _GatherRows, _MeanOver, _ReduceScatterRows,
-    copy_to, reduce_from,
 )
 from repro_torch.distributed.sharding import (
-    axis_groups, current_mesh, current_rules, current_tp,
+    TPRank, axis_groups, current_mesh, current_rules, current_tp, seq_parts,
+    sublayer_in, sublayer_out,
 )
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import layers as L
@@ -139,7 +144,8 @@ def route(router, xf, cfg, group=None, rows=()):
 
 
 def moe_apply(params, x, cfg):
-    """x: (B, S, D) -> (out (B, S, D), {"moe_aux", "moe_drop"})."""
+    """x: (B, S, D) -> (out (B, S, D), {"moe_aux", "moe_drop"}); under
+    the sequence split, of the rank's positions."""
     mesh = current_mesh()
     if mesh is not None:
         if cfg.moe.ep_shard and _ep_applicable(cfg, x, mesh):
@@ -183,7 +189,7 @@ def _experts(params, xin, cfg, gate_vals, expert_ids, slot, keep, *,
     xe = torch.zeros((E_l, C_l, D), dtype=cdt,
                      device=xin.device).index_put((ids, safe_slot), contrib,
                                                   accumulate=True)
-    ye = L.mlp(params, xe, cfg)                               # (E_l, C_l, D)
+    ye = L.ffn(params, xe, cfg)                               # (E_l, C_l, D)
 
     # gather back and combine, token by token in choice order
     gates = gate_vals.reshape(T * k)
@@ -197,12 +203,15 @@ def _experts(params, xin, cfg, gate_vals, expert_ids, slot, keep, *,
     return out
 
 
-def _routed(params, xf, cfg, rows=()):
-    """Route the flat tokens ``xf`` (T, D) and run the experts, as the
-    tensor-parallel plan splits them (``current_tp``): under "expert"
-    this rank's experts, from the router's columns gathered; under
-    "expert_ffn" every expert on this rank's ``d_ff`` columns, from the
-    whole router; otherwise whole.  The parts are summed over ``model``.
+def _routed(params, xin, xf, cfg, rows=()):
+    """Route the flat tokens and run the experts, as the tensor-parallel
+    plan splits them (``current_tp``): under "expert" this rank's
+    experts, from the router's columns gathered; under "expert_ffn" every
+    expert on this rank's ``d_ff`` columns, from the whole router;
+    otherwise whole.  ``xin`` (T, D) is the experts' input (and the
+    router's under "expert"), ``xf`` the same tokens as the whole router
+    reads them (see ``sublayer_in``).  The output is this rank's part of
+    the sum over ``model``.
 
     With ``rows`` (the batch axes' groups, in mesh order) ``xf`` holds
     this rank's tokens: the router's logits are gathered over them, every
@@ -216,7 +225,6 @@ def _routed(params, xf, cfg, rows=()):
     by_expert, by_ffn = current_tp("expert"), current_tp("expert_ffn")
     tp = by_expert or by_ffn
     group = None if tp is None else tp.group
-    xin = copy_to(xf, group)
     if by_expert is not None:
         probs, gate_vals, expert_ids, slot, keep = route(
             params["router"], xin, cfg, group, rows)
@@ -240,16 +248,16 @@ def _routed(params, xf, cfg, rows=()):
             out = _ReduceScatterRows.apply(out, g)
     elif rows:
         out = out[idx * xf.shape[0]:(idx + 1) * xf.shape[0]]
-    return reduce_from(out, group), probs, expert_ids, keep
+    return out, probs, expert_ids, keep
 
 
-def _shared(params, xf, cfg):
-    """The shared expert, column- then row-parallel by its ``d_ff`` under
-    the plan's "shared" kind."""
+def _shared(params, x, cfg):
+    """The shared expert on the residual stream ``x`` (B, S, D), column-
+    then row-parallel by its ``d_ff`` under the plan's "shared" kind."""
     shared = {"w_up": params["shared_up"], "w_down": params["shared_down"]}
     if cfg.gated_mlp:
         shared["w_gate"] = params["shared_gate"]
-    return L.mlp(shared, xf, cfg, tp=current_tp("shared"))
+    return L.mlp(shared, x, cfg, tp=current_tp("shared"))
 
 
 def _aux(probs, expert_ids, keep, m):
@@ -265,20 +273,32 @@ def _moe_apply_dense(params, x, cfg, rows=()):
     computes it for the reference: the router's logits on this rank's
     tokens, gathered, and every token routed; the experts' slots split
     over the ranks (:func:`_routed`); the shared expert on this rank's
-    tokens.  Returns this rank's tokens' output."""
+    tokens.  Returns this rank's tokens' output (under the sequence
+    split, of its positions)."""
     m = cfg.moe
-    B, S, D = x.shape
-    xf = x.reshape(B * S, D).to(dtype_of(cfg.compute_dtype))
-    out, probs, expert_ids, keep = _routed(params, xf, cfg, rows)
+    x = x.to(dtype_of(cfg.compute_dtype))
+    by_expert = current_tp("expert")
+    tp = by_expert or current_tp("expert_ffn")
+    xin = sublayer_in(x, tp)
+    xf = xin if by_expert is not None or tp is None else sublayer_in(x,
+                                                                     None)
+    B, S, D = xin.shape
+    # one view where the router and the experts read the same tensor, so
+    # that its gradient sums their parts in one order on every route
+    fin = xin.reshape(B * S, D)
+    out, probs, expert_ids, keep = _routed(
+        params, fin, fin if xf is xin else xf.reshape(B * S, D), cfg, rows)
+    out = sublayer_out(out.reshape(B, S, D), tp)
     if m.shared_expert:
-        out = out + _shared(params, xf, cfg)
+        out = out + _shared(params, x, cfg)
     aux, drop = _aux(probs, expert_ids, keep, m)
-    return out.reshape(B, S, D), {"moe_aux": aux, "moe_drop": drop}
+    return out, {"moe_aux": aux, "moe_drop": drop}
 
 
 def _ep_applicable(cfg, x, mesh) -> bool:
     """The reference's test (``moe.py:165``) on the batch it sees: ``x``
-    holds this rank's rows, split over the context's batch axes."""
+    holds this rank's rows, split over the context's batch axes (and
+    under the sequence split its positions)."""
     m = cfg.moe
     sizes = mesh_axis_sizes(mesh)
     if "model" not in sizes:
@@ -287,7 +307,7 @@ def _ep_applicable(cfg, x, mesh) -> bool:
     E = m.padded_experts()
     B = x.shape[0] * math.prod(sizes[a] for a in
                                current_rules().get("act_batch", ()))
-    T = B * x.shape[1]
+    T = B * x.shape[1] * seq_parts()
     return (E % sizes["model"] == 0
             and B % dp_size == 0
             and (T // dp_size) * m.top_k >= 4 * E)   # enough local tokens
@@ -304,20 +324,21 @@ def _moe_apply_ep(params, x, cfg, mesh):
         raise ValueError(f"the expert-parallel route takes this rank's "
                          f"{m.padded_experts() // n_model} experts, got "
                          f"{E_l}")
-    group = mesh.get_group("model") if n_model > 1 else None
-    B, S, D = x.shape
-    xf = x.reshape(B * S, D).to(dtype_of(cfg.compute_dtype))
-    xin = xf if group is None else _CopyTo.apply(xf, group)
+    ep = TPRank(mesh.get_group("model") if n_model > 1 else None,
+                mesh.get_local_rank("model"))
+    x = x.to(dtype_of(cfg.compute_dtype))
+    xin = sublayer_in(x, ep)
+    B, S, D = xin.shape
+    xin = xin.reshape(B * S, D)
     probs, gate_vals, expert_ids, slot, keep = route(params["router"], xin,
-                                                     cfg, group)
-    out = reduce_from(_experts(params, xin, cfg, gate_vals, expert_ids,
-                               slot, keep,
-                               lo=mesh.get_local_rank("model") * E_l,
-                               group=group), group)
+                                                     cfg, ep.group)
+    out = sublayer_out(_experts(params, xin, cfg, gate_vals, expert_ids,
+                                slot, keep, lo=ep.rank * E_l,
+                                group=ep.group).reshape(B, S, D), ep)
     if m.shared_expert:
-        out = out + _shared(params, xf, cfg)
+        out = out + _shared(params, x, cfg)
     aux, drop = _aux(probs, expert_ids, keep, m)
     dp = axis_groups(mesh, current_rules()["act_batch"])
     if dp:
         aux, drop = _MeanOver.apply(aux, dp), _MeanOver.apply(drop, dp)
-    return out.reshape(B, S, D), {"moe_aux": aux, "moe_drop": drop}
+    return out, {"moe_aux": aux, "moe_drop": drop}

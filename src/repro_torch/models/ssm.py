@@ -28,7 +28,10 @@ scan are per channel and local, ``x_proj`` is row-parallel and its
 rank's channels read the whole of dt, B and C), and ``out_proj`` is
 row-parallel, its output summed (Megatron's g).  The cache holds the
 rank's channels: ``conv`` (B, K-1, d_inner / m) and ``ssm`` (B,
-d_inner / m, N).
+d_inner / m, N).  Under the sequence split (``seq_shard``) the block
+gathers the residual stream's positions first and hands back the rank's
+positions of its output (``sublayer_in`` / ``sublayer_out``): the scan
+runs over the whole sequence.
 """
 from __future__ import annotations
 
@@ -38,7 +41,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.collectives import copy_to, reduce_from
-from repro_torch.distributed.sharding import current_tp
+from repro_torch.distributed.sharding import (
+    current_tp, sublayer_in, sublayer_out,
+)
 from repro_torch.models.params import (
     dense_init, dtype_of, log_arange_init, ones_init, zeros_init,
 )
@@ -148,7 +153,7 @@ def mamba_apply(params, x, cfg, cache: Optional[dict] = None):
     tp = current_tp("mamba")
     group = None if tp is None else tp.group
 
-    xz = copy_to(x.to(cdt), group) @ params["in_proj"].to(cdt)  # (B,S,2di)
+    xz = sublayer_in(x.to(cdt), tp) @ params["in_proj"].to(cdt)  # (B,S,2di)
     xs, z = xz.chunk(2, dim=-1)
 
     conv_cache = cache["conv"] if cache is not None else None
@@ -166,7 +171,7 @@ def mamba_apply(params, x, cfg, cache: Optional[dict] = None):
     h0 = cache["ssm"] if cache is not None else None
     y, h_last = selective_scan(xs, dt, B_c, C_c, A, params["D"], h0=h0)
 
-    out = reduce_from((y * F.silu(z)) @ params["out_proj"].to(cdt), group)
+    out = sublayer_out((y * F.silu(z)) @ params["out_proj"].to(cdt), tp)
     new_cache = None
     if cache is not None:
         new_cache = {"conv": new_conv, "ssm": h_last}

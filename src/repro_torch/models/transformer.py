@@ -16,7 +16,13 @@ Under the mesh step's tensor-parallel plan (``distributed.sharding``)
 the attention, MLP and embedding layers compute on this rank's chunks
 of their leaves, and the loss takes this rank's vocabulary columns of
 the logits into the vocab-parallel cross-entropy
-(``distributed.collectives``).
+(``distributed.collectives``).  Where the plan also splits the sequence
+(``seq_shard``) the residual stream holds this rank's positions: the
+embedding keeps them, the norms (their scales' gradients summed over
+``model``) and the residual adds run on them, every sublayer gathers
+them (``sublayer_in``) and hands back the rank's positions of its
+output (``sublayer_out``), and the head gathers them again.  Positions
+(RoPE) are the whole sequence's, so the caches of a prefill are the same.
 """
 from __future__ import annotations
 
@@ -29,8 +35,10 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ArchConfig, Layer
-from repro_torch.distributed.collectives import copy_to, vocab_parallel_ce
-from repro_torch.distributed.sharding import current_tp
+from repro_torch.distributed.collectives import vocab_parallel_ce
+from repro_torch.distributed.sharding import (
+    current_tp, seq_param, seq_whole, sublayer_in, sublayer_out,
+)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -42,6 +50,13 @@ from repro_torch.models.params import ParamTree, dtype_of, resolve_device
 def _zc(cfg) -> bool:
     # gemma-style (1 + w) zero-centered norm scaling
     return cfg.embed_scale
+
+
+def _norm(p, x, cfg):
+    """An RMSNorm of the residual stream (under the sequence split, of the
+    rank's positions: the scale's gradient is summed over ``model``)."""
+    return L.rmsnorm({"scale": seq_param(p["scale"])}, x, cfg.norm_eps,
+                     zero_centered=_zc(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -83,7 +98,7 @@ def layer_apply(p, x, cfg: ArchConfig, layer: Layer, *, mode: str,
     new_cache is None in train mode, aux the moe layer's ``moe_aux`` and
     ``moe_drop`` (empty for the other ffns)."""
     aux: dict = {}
-    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, zero_centered=_zc(cfg))
+    h = _norm(p["norm1"], x, cfg)
     mixer_cache = cache["mixer"] if mode == "decode" else None
     if layer.mixer in ("attn", "attn_local"):
         local = layer.mixer == "attn_local"
@@ -114,19 +129,18 @@ def layer_apply(p, x, cfg: ArchConfig, layer: Layer, *, mode: str,
         raise ValueError(layer.mixer)
 
     if cfg.post_norm:
-        h = L.rmsnorm(p["post_norm1"], h, cfg.norm_eps, zero_centered=_zc(cfg))
+        h = _norm(p["post_norm1"], h, cfg)
     x = x + h
 
     if layer.ffn != "none":
-        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, zero_centered=_zc(cfg))
+        h = _norm(p["norm2"], x, cfg)
         if layer.ffn == "mlp":
             h = L.mlp(p["ffn"], h, cfg, tp=current_tp("ffn"))
         else:
             h, moe_aux = moe_mod.moe_apply(p["ffn"], h, cfg)
             aux.update(moe_aux)
         if cfg.post_norm:
-            h = L.rmsnorm(p["post_norm2"], h, cfg.norm_eps,
-                          zero_centered=_zc(cfg))
+            h = _norm(p["post_norm2"], h, cfg)
         x = x + h
     new_cache = None if mode == "train" else {"mixer": new_mixer_cache}
     return x, new_cache, aux
@@ -217,16 +231,18 @@ class Model(ParamTree):
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
-        return x
+        return sublayer_out(x, None)
 
     # --- forward trunk ---------------------------------------------------
 
     def trunk(self, inputs, *, positions=None):
-        """Embed + all blocks + final norm.  Returns (hidden, aux)."""
+        """Embed + all blocks + final norm.  Returns (hidden, aux); under
+        the sequence split the hidden states of this rank's positions."""
         cfg = self.cfg
         x = self._embed_inputs(inputs)
         if positions is None:
-            positions = torch.arange(x.shape[1], device=x.device)[None, :]
+            positions = torch.arange(inputs.shape[1],
+                                     device=x.device)[None, :]
 
         def one_group(x, gp):
             out, _, a = group_apply(gp, x, cfg, mode="train",
@@ -238,9 +254,7 @@ class Model(ParamTree):
         for gp in self.groups:
             x, a = one_group(x, gp)
             aux = aux + a
-        x = L.rmsnorm(self.final_norm, x, cfg.norm_eps,
-                      zero_centered=_zc(cfg))
-        return x, aux
+        return _norm(self.final_norm, x, cfg), aux
 
     # --- training loss ----------------------------------------------------
 
@@ -260,8 +274,7 @@ class Model(ParamTree):
         w = (self.embed.embedding.T if cfg.tie_embeddings
              else self.embed.unembed).to(dtype_of(cfg.compute_dtype))
         tp = current_tp("vocab")
-        if tp is not None:
-            x = copy_to(x, tp.group)
+        x = sublayer_in(x, tp)      # every position, for the head
 
         n_chunks = max(1, S // seq_chunk)
         c = S // n_chunks
@@ -300,14 +313,13 @@ class Model(ParamTree):
         """
         cfg = self.cfg
         x = self._embed_inputs(inputs)
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        positions = torch.arange(inputs.shape[1], device=x.device)[None, :]
         caches = []
         for gp in self.groups:
             x, c, _ = group_apply(gp, x, cfg, mode="prefill",
                                   positions=positions)
             caches.append(c)
-        x = L.rmsnorm(self.final_norm, x, cfg.norm_eps,
-                      zero_centered=_zc(cfg))
+        x = seq_whole(_norm(self.final_norm, x, cfg))
         return L.logits(self.embed, x[:, -1:], cfg), caches
 
     @torch.no_grad()
@@ -325,8 +337,7 @@ class Model(ParamTree):
             x, nc, _ = group_apply(gp, x, cfg, mode="decode", gcache=gc,
                                    cache_pos=pos)
             new_cache.append(nc)
-        x = L.rmsnorm(self.final_norm, x, cfg.norm_eps,
-                      zero_centered=_zc(cfg))
+        x = _norm(self.final_norm, x, cfg)
         return L.logits(self.embed, x, cfg), new_cache
 
     # --- logical axes ----------------------------------------------------------

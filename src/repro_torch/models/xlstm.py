@@ -38,6 +38,11 @@ Tensor parallelism over ``model`` (``distributed/sharding.py``'s plan):
   ``model``), the up projection is row-parallel from them and summed
   over ``model``, and the down projection computes whole on every rank,
   as the reference's partitioner computes it.
+
+Under the sequence split (``seq_shard``) both blocks gather the residual
+stream's positions first and hand back the rank's positions of their
+output (``sublayer_in`` / ``sublayer_out``): the recurrences run over the
+whole sequence, and a prefill's states are the same.
 """
 from __future__ import annotations
 
@@ -50,7 +55,9 @@ from repro_torch.distributed.collectives import (
     copy_to, gather_cols, reduce_from, reduce_scatter_cols, scatter_to,
     sum_over,
 )
-from repro_torch.distributed.sharding import current_tp
+from repro_torch.distributed.sharding import (
+    current_tp, seq_param, sublayer_in, sublayer_out,
+)
 from repro_torch.models.params import (
     const_init, dense_init, dtype_of, ones_init, zeros_init,
 )
@@ -178,15 +185,16 @@ def mlstm_apply(params, x, cfg, cache: Optional[dict] = None,
     tensor-parallel plan the leaves and the cache are the rank's heads
     (see the module doc)."""
     cdt = dtype_of(cfg.compute_dtype)
-    B, S, D = x.shape
     H = cfg.n_heads
     dh = cfg.d_inner_mlstm // H
     tp = current_tp("mlstm")
     group = None if tp is None else tp.group
     di = params["up_proj"].shape[1] // 2        # this rank's features
     nh = di // dh                               # and heads
+    x = sublayer_in(x.to(cdt), tp)
+    B, S, D = x.shape
 
-    xz = copy_to(x.to(cdt), group) @ params["up_proj"].to(cdt)
+    xz = x @ params["up_proj"].to(cdt)
     xm, z = torch.chunk(xz, 2, dim=-1)
 
     conv_cache = cache["conv"] if cache is not None else None
@@ -222,7 +230,7 @@ def mlstm_apply(params, x, cfg, cache: Optional[dict] = None,
 
     h = _headwise_rmsnorm(h.to(cdt), params["norm_scale"])
     h = h + params["skip"].to(cdt)[None, None] * xc
-    out = reduce_from((h * F.silu(z)) @ params["down_proj"].to(cdt), group)
+    out = sublayer_out((h * F.silu(z)) @ params["down_proj"].to(cdt), tp)
     if cache is None and not return_state:
         return out, None
     return out, {"conv": new_conv, "C": C, "n": n, "m": m}
@@ -297,14 +305,15 @@ def slstm_apply(params, x, cfg, cache: Optional[dict] = None,
     Under the tensor-parallel plan the gates, the recurrence and the cache
     are the rank's heads (see the module doc)."""
     cdt = dtype_of(cfg.compute_dtype)
-    B, S, D = x.shape
-    dh = D // cfg.n_heads
     tp = current_tp("slstm")
     group = None if tp is None else tp.group
     r = params["r"]
     nh = r.shape[1]                             # this rank's heads
+    x = sublayer_in(x.to(cdt), tp)
+    B, S, D = x.shape
+    dh = D // cfg.n_heads
 
-    wx = (copy_to(x.to(cdt), group) @ params["w"].to(cdt)).float()
+    wx = (x @ params["w"].to(cdt)).float()
     wx = (wx + params["b"][None, None]).reshape(B, S, 4, nh, dh)
 
     if cache is None:
@@ -324,7 +333,7 @@ def slstm_apply(params, x, cfg, cache: Optional[dict] = None,
         # heads, its statistics summed over model, and the up projection
         # row-parallel from them (the rows of the rank's heads), as the
         # reference's partitioner contracts over the split features
-        out = _slstm_post_split(params, h, cfg, group, D)
+        out = _slstm_post_split(params, h, cfg, tp, D)
     else:
         h = gather_cols(h, group)       # the post-norm reads every head
         # post-norm + gelu FFN (sLSTM block's post up/down projection)
@@ -332,12 +341,11 @@ def slstm_apply(params, x, cfg, cache: Optional[dict] = None,
         var = torch.mean(hf * hf, dim=-1, keepdim=True)
         hn = (hf * torch.rsqrt(var + 1e-6)
               * params["norm_scale"].float()).to(cdt)
-        ffn = None if ffn is None else ffn.group
         # jax.nn.gelu defaults to the tanh approximation
-        out = reduce_from(F.gelu(copy_to(hn, ffn)
-                                 @ params["ffn_up"].to(cdt),
-                                 approximate="tanh")
-                          @ params["ffn_down"].to(cdt), ffn)
+        up = copy_to(hn, None if ffn is None else ffn.group) \
+            @ params["ffn_up"].to(cdt)
+        out = sublayer_out(F.gelu(up, approximate="tanh")
+                           @ params["ffn_down"].to(cdt), ffn)
 
     new_cache = None
     if cache is not None or return_state:
@@ -346,21 +354,26 @@ def slstm_apply(params, x, cfg, cache: Optional[dict] = None,
     return out, new_cache
 
 
-def _slstm_post_split(params, h, cfg, group, D: int):
+def _slstm_post_split(params, h, cfg, tp, D: int):
     """The sLSTM block's post-norm and post-FFN on the rank's heads ``h``
     (B, S, D / m) where "slstm" splits and "slstm_ffn" does not: the
     norm's mean square summed over ``model``, the rank's features of the
     norm and its rows of ``ffn_up`` (their gradients gathered whole), the
-    up projection summed over ``model`` (Megatron's g), the down
-    projection whole."""
+    up projection summed over ``model`` (Megatron's g; under the sequence
+    split reduce-scattered to the rank's positions, as the reference's
+    partitioner leaves it), the down projection whole (under the sequence
+    split on the rank's positions, its gradient summed over ``model``).
+    Returns the block's output to the residual stream."""
     cdt = dtype_of(cfg.compute_dtype)
+    group = tp.group
     hf = h.float()
     var = sum_over(torch.sum(hf * hf, dim=-1, keepdim=True), group) / D
     scale = scatter_to(params["norm_scale"], group, 0).float()
     hn = (hf * torch.rsqrt(var + 1e-6) * scale).to(cdt)
-    up = reduce_from(hn @ scatter_to(params["ffn_up"], group, 0).to(cdt),
-                     group)
-    return F.gelu(up, approximate="tanh") @ params["ffn_down"].to(cdt)
+    up = sublayer_out(hn @ scatter_to(params["ffn_up"], group, 0).to(cdt),
+                      tp)
+    return F.gelu(up, approximate="tanh") @ seq_param(
+        params["ffn_down"]).to(cdt)
 
 
 def _slstm_state(batch: int, heads: int, dh: int, device) -> dict:

@@ -62,9 +62,15 @@ jitted GSPMD step:
   chunks, clipped by the norm of the whole gradient (the split
   gradients' squares summed over ``model``).
 
-Not tensor-parallel (ROADMAP A11c): ``seq_shard``, and a kind whose
-counts do not divide ``model`` (the plan says which); their ranks along
-``model`` repeat the work, which changes no result.
+Under ``seq_shard`` the plan splits the same kinds and marks the
+sequence split: where the batch's sequence length divides ``model``, the
+residual stream between the sublayers holds each rank's positions
+(Megatron's sequence parallelism; ``distributed.sharding.sublayer_in``
+and ``sublayer_out``), and a norm's gradient is summed over ``model``
+by the model itself, so the step's gradients are each rank's as
+without it.  Not tensor-parallel: a kind whose counts do not divide
+``model`` (the plan says which); its ranks along ``model`` repeat the
+work, which changes no result.
 
 int8 compression raises under expert parallelism over a ``model`` axis
 of more than one rank (the reference's own step fails there, ROADMAP
@@ -96,7 +102,10 @@ recurrent cache leaves are placed by their specs (mamba's ``conv`` and
 ``model``): where the plan splits the mixer, a decode step computes on
 each leaf's local tensor, the rank's channels or heads, and writes the
 new state into it; where it leaves the mixer whole, the step gathers the
-leaves whole over ``model`` and writes back only its own chunk.  The dry
+leaves whole over ``model`` and writes back only its own chunk.  Under
+``seq_shard`` a prefill splits the residual stream by sequence as the
+train step does (its caches are the whole sequence's, as without it); a
+decode step, one position, runs as plain tensor parallelism.  The dry
 run (``launch/dryrun.py``) traces these bundles on fake tensors
 and prices them (``analysis/``).
 """
@@ -515,7 +524,8 @@ def _mesh_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
         coord = dict(zip(sizes, mesh.get_coordinate()))
         rows = _microbatch_rows(batch["labels"].shape[0], cfg.microbatches,
                                 sizes, coord, compression)
-        with activation_sharding(mesh, cfg, exclude, tp):
+        with activation_sharding(mesh, cfg, exclude, tp,
+                                 seq_len=batch["labels"].shape[1]):
             grads, loss, _ = _accumulate(compute, batch, rows)
         _bind(compute, shapes)          # drop the views until the next step
         grads = {k: g.contiguous() for k, g in grads.items()}
@@ -668,9 +678,12 @@ class _ServeMesh:
         # the views gathered per call)}
         self._bound = weakref.WeakKeyDictionary()
 
-    def context(self):
+    def context(self, seq_len: int):
+        """The model's context for a call over ``seq_len`` positions (a
+        decode step: 1, which no ``model`` axis of more than one rank
+        splits)."""
         return activation_sharding(self.mesh, self.cfg, (), self.tp,
-                                   self.cache_seq)
+                                   self.cache_seq, seq_len)
 
     @contextlib.contextmanager
     def bound(self, params: Model):
@@ -784,7 +797,7 @@ def _prefill_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
     def prefill(params: Model, inputs):
         """-> (logits (B, 1, V) and the cache, DTensors placed by
         ``out_shardings``)."""
-        with sv.bound(params) as model, sv.context():
+        with sv.bound(params) as model, sv.context(inputs.shape[1]):
             logits, cache = model.prefill(sv.rows(inputs))
         return sv.logits(logits), sv.place_cache(cache)
 
@@ -805,7 +818,7 @@ def _decode_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
         """-> (logits (B, 1, V), a DTensor placed by ``out_shardings[0]``,
         and ``cache``, written in place)."""
         local = sv.compute_cache(cache)
-        with sv.bound(params) as model, sv.context():
+        with sv.bound(params) as model, sv.context(tokens.shape[1]):
             logits, new = model.decode_step(local, sv.rows(tokens), int(pos))
         sv.write_back(cache, new)
         return sv.logits(logits), cache

@@ -510,13 +510,17 @@ def _state_parts(ref, got, tag, coord):
 
 
 def _hold_step(ref, ranks, name, i, prev_tag, lr, pods=0,
-               state_parts=None):
+               state_parts=None, reach=None):
     """Each rank's chunks after step ``i`` against the reference's shards
     at its coordinate (moments, error feedback, then the parameter deltas
     from ``prev_tag``).  ``pods``: int8 compression over that many pods,
     where at most 1 entry in 1000 may have flipped to the neighbouring
     int8 value at some step (see the module doc).  ``state_parts``: the
-    moments' check, :func:`_state_parts` by default."""
+    moments' check, :func:`_state_parts` by default.  ``reach``: where
+    ``ref`` is the same function summed in another order (a mesh-free
+    step), each parameter's spread under reordered sums at each step
+    (keyed as ``ref``; ``tests/_torch_rounding.py``): a delta's bar then
+    also allows twice the spreads of the parameter before and after."""
     state_parts = state_parts or _state_parts
     tag = f"{name}/step{i}"
     for got in ranks:
@@ -554,6 +558,9 @@ def _hold_step(ref, ranks, name, i, prev_tag, lr, pods=0,
             eps = np.finfo(p.dtype).eps
             tol = eps * (np.maximum(np.abs(p0), np.abs(p))
                          + np.maximum(np.abs(w0), np.abs(w))) + 1e-3 * lr
+            if reach is not None:
+                tol = tol + 2 * (reach[f"{tag}/{key}@{coord}"] + reach.get(
+                    f"{prev_tag}/{key}@{coord}", 0))
             err = np.abs((p - p0) - (w - w0))
             leaf = key[len("params/"):]
             resolved = np.abs(at(tag, "opt/m/" + leaf, ref)) \

@@ -43,7 +43,9 @@ Cases, smoke configs (d_model 128, 4 query heads of 32, float32), with
 Checks: each rank's logits rows and every cache chunk, after the prefill
 and after each decode step, against the reference's values at the
 rank's coordinate (float32 atol = rtol = 2e-5, the layer tolerance of
-``tests/test_torch_models.py``); the port's cache specs equal the
+``tests/test_torch_models.py``; against the mesh-free model plus twice
+each entry's spread under reordered sums, ``tests/_torch_rounding.py``);
+the port's cache specs equal the
 reference's decode cache specs; each chunk is its spec's share of the
 cache (no rank holds a sequence-split cache whole); a decode step reads
 the recurrent cache leaves of a split mixer in place (the tensors it
@@ -60,6 +62,7 @@ import numpy as np
 import pytest
 
 from _torch_ranks import run_sides
+from _torch_rounding import assert_within, spread
 
 B, S = 4, 32
 DECODE_POS = (13, 22, 31)
@@ -201,6 +204,54 @@ def _port_params(cfg, arch, over):
             from_jax_params(cfg, jax.tree.map(np.asarray, tree)).items()}
 
 
+def _plain_run(name):
+    """A function that runs case ``name``'s mesh-free model, whole, from
+    the reference's parameters: the prefill and the decode steps, their
+    logits and caches as {"<stage>/...": array}."""
+    import torch
+    from repro_torch.models import Model
+    arch, _, over, _ = CASES[name]
+    cfg = _cfg(arch, over, "repro_torch")
+    model = Model(cfg, device="cpu")
+    model.load_state_dict(_port_params(cfg, arch, over))
+    prompt, steps = _tokens(cfg)
+
+    def arrays(stage, logits, cache):
+        out = {f"{stage}/logits": logits.numpy().copy()}
+        for g, gc in enumerate(cache):
+            for layer, tree in gc.items():
+                for n, leaf in tree["mixer"].items():
+                    out[f"{stage}/{g}/{layer}/mixer/{n}"] = \
+                        leaf.numpy().copy()
+        return out
+
+    def run():
+        logits, cache = model.prefill(torch.from_numpy(prompt).long())
+        out = arrays("prefill", logits, cache)
+        for i, pos in enumerate(DECODE_POS):
+            logits, cache = model.decode_step(
+                cache, torch.from_numpy(steps[i]).long(), pos)
+            out.update(arrays(f"decode{i}", logits, cache))
+        return out
+
+    return run
+
+
+@pytest.fixture(scope="module")
+def reach():
+    """Per case, how far the mesh-free model's results move when their
+    products sum in other orders (``_torch_rounding.spread``), whole;
+    computed in this process once the ranks are done."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = spread(_plain_run(name))
+        return cache[name]
+
+    return get
+
+
 def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
     import torch
     import torch.distributed as dist
@@ -298,14 +349,6 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
                     res[f"{prefix}/{g}/{layer}/mixer/{n}@{coord}"] = \
                         leaf.to_local().numpy().copy()
 
-    def save_plain(prefix, logits, cache):
-        res[f"{prefix}/logits"] = logits.numpy()
-        for g, gc in enumerate(cache):
-            for layer, tree in gc.items():
-                for n, leaf in tree["mixer"].items():
-                    res[f"{prefix}/{g}/{layer}/mixer/{n}"] = \
-                        leaf.numpy().copy()
-
     for name, (arch, shape, over, _) in CASES.items():
         cfg = _cfg(arch, over, "repro_torch")
         mesh = make_mesh(shape, AXES, "cpu")
@@ -318,14 +361,8 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
         params = place_params(cfg, full, pb.in_shardings[0])
         prompt, steps = _tokens(cfg)
         if rank == 0:       # the mesh-free model, whole
-            model = Model(cfg, device="cpu")
-            model.load_state_dict(full)
-            logits, plain = model.prefill(torch.from_numpy(prompt).long())
-            save_plain(f"{name}/plain/prefill", logits, plain)
-            for i, pos in enumerate(DECODE_POS):
-                logits, plain = model.decode_step(
-                    plain, torch.from_numpy(steps[i]).long(), pos)
-                save_plain(f"{name}/plain/decode{i}", logits, plain)
+            for k, v in _plain_run(name)().items():
+                res[f"{name}/plain/{k}"] = v
         logits, cache = pb.step_fn(params, torch.from_numpy(prompt).long())
         save(f"{name}/prefill", logits, cache, coord)
         res[f"{name}/kinds"] = np.array(json.dumps(sorted(db.tp.kinds)))
@@ -453,17 +490,25 @@ def test_cache_specs_match_reference(sides, name):
 
 @pytest.mark.parametrize("against", ["reference", "plain"])
 @pytest.mark.parametrize("name", list(CASES))
-def test_logits_and_cache_chunks_match(sides, name, against):
+def test_logits_and_cache_chunks_match(sides, reach, name, against):
     """After the prefill and after each decode step, each rank's logits
     rows and each cache leaf's chunk equal the values at the rank's
     coordinate of the reference's jitted bundles, and of the port's
-    mesh-free model; the chunk is the spec's share of the leaf."""
+    mesh-free model; the chunk is the spec's share of the leaf.  Against
+    the mesh-free model, which computes the same function with its sums
+    in another order, each entry's bar also allows twice its spread, how
+    far the mesh-free results move when their products sum in other
+    orders (``tests/_torch_rounding.py``): jamba's split mamba mixers
+    carried that order to 2.96e-5 in group 1's attention K on some CPUs'
+    GEMMs, past TOL alone."""
     ref, ranks = sides
     shape = CASES[name][1]
     tol = (REF_TOL if against == "reference" else PLAIN_TOL).get(name, TOL)
     base = ref if against == "reference" else {
         k.replace("/plain/", "/", 1): v for k, v in ranks[0].items()
         if k.startswith(f"{name}/plain/")}
+    moved = {f"{name}/{k}": v for k, v in reach(name).items()} \
+        if against == "plain" else {}
     n = 0
     for got in _ranks(ranks, name):
         for stage in _stages():
@@ -483,8 +528,12 @@ def test_logits_and_cache_chunks_match(sides, name, against):
                                               f"{leaf}"]))
                 want = _chunk(full, spec, coord, shape)
                 assert got[k].shape == want.shape, (k, got[k].shape)
-                np.testing.assert_allclose(got[k], want, atol=tol,
-                                           rtol=tol, err_msg=k)
+                if against == "reference":
+                    np.testing.assert_allclose(got[k], want, atol=tol,
+                                               rtol=tol, err_msg=k)
+                else:
+                    assert_within(got[k], want, tol, tol, _chunk(
+                        moved[path], spec, coord, shape), err_msg=k)
                 n += 1
     assert n
 

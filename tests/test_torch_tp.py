@@ -48,14 +48,21 @@ module doc; the xLSTM cases' moments at the per-entry bar of
 ``tests/test_torch_optim.py``, ROADMAP C16), and the recurrent cases'
 against the port's mesh-free step at those tolerances; under int8, the
 gradients the quantizer gets against the mesh-free gradient of the
-pod's rows (ROADMAP C16); that the plan splits what the config allows,
-that each tensor-parallel leaf's compute view holds 1/m of its elements
-with ``Shard`` on ``model`` (never gathered whole over ``model``), or
+pod's rows (ROADMAP C16); where a comparison is of two float32 orders of
+one function (a split against the whole, the mesh against the mesh-free
+step), the bar also allows twice each entry's spread, how far the
+mesh-free side moves when its products sum in other orders
+(``tests/_torch_rounding.py``; for the whole models computed in the
+test's process once the ranks are done, off their deadline); that the
+plan splits what the config allows, that each tensor-parallel leaf's
+compute view holds 1/m of its elements with ``Shard`` on ``model``
+(never gathered whole over ``model``), or
 for a gate leaf (mamba's ``in_proj``, the mLSTM's ``up_proj``, the
 sLSTM's ``w`` and ``b``) the rank's chunk of each gate block of the
 whole leaf, its gradient back in the leaf's storage chunk (the one the
 step's AdamW updates); each split recurrent mixer against its whole
-layer (output, gradients, states, a decode step) at 2e-5; the
+layer (output, gradients, states, a decode step) at 2e-5 plus that
+spread; the
 vocab-parallel cross-entropy on 2 ranks against ``torch.logsumexp``; and
 that on a (1, 1) mesh, where the same code runs with its collectives as
 identities, the step equals the mesh-free step bit for bit.  In this
@@ -63,6 +70,7 @@ process: the plan's decisions for the full configs, and the KV heads
 that a rank's query heads read where the KV heads do not split,
 including groupings that no smoke config reaches.
 """
+import copy
 import json
 import math
 import os
@@ -71,6 +79,7 @@ import numpy as np
 import pytest
 
 from _torch_ranks import run_sides
+from _torch_rounding import assert_within, spread, within
 from test_torch_distributed import _flat, _hold_step, _lr
 
 B, S, STEPS = 8, 32, 2
@@ -159,7 +168,9 @@ MIXERS = (("jamba-v0.1-52b", "l0", "mamba"), ("xlstm-125m", "l0", "mlstm"),
           ("xlstm-125m", "l3", "slstm"))
 MIXER_MESHES = ((1, 2), (1, 4))
 LAYER_TOL = 2e-5        # single functions: tests/test_torch_models.py
-TIMEOUT = 420
+# the subprocesses' deadline: the reference side's 16 cases took up to
+# 420 s under the whole suite's load (6 workers on 8 cores)
+TIMEOUT = 720
 
 
 MOE_KEYS = ("ep_shard", "num_experts")     # changes of cfg.moe
@@ -209,6 +220,152 @@ def _ce_inputs():
     logits = rng.normal(0, 3, CE_SHAPE + (CE_VOCAB,)).astype(np.float32)
     labels = rng.integers(0, CE_VOCAB, CE_SHAPE)
     return logits, labels
+
+
+def _init_state(bundle, arch, over):
+    """``bundle``'s state holding the reference's initial state
+    (``init_fn(key(0))``)."""
+    import jax
+    import torch
+    from repro.configs.base import ShapeCfg as JShape
+    from repro.train import make_step_bundle as jbundle
+    from repro_torch.models.params import from_jax_state
+    from repro_torch.train import load_state
+    jcfg = _cfg(arch, over, "repro")
+    jstate = jbundle(jcfg, JShape("t", S, B, "train")).init_fn(
+        jax.random.key(0))
+    state = bundle.init_fn(torch.Generator().manual_seed(0))
+    tree = from_jax_state(bundle.cfg, jax.tree.map(np.asarray, jstate))
+    if "ef" in state:       # the reference makes it on a mesh only
+        tree["ef"] = {k: torch.zeros(v.shape)
+                      for k, v in tree["params"].items()}
+    load_state(state, tree)
+    return state
+
+
+def _batches(cfg):
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    src = SyntheticLM(cfg.vocab_size, S, seed=0)
+    return lambda i: {k: torch.from_numpy(v) for k, v in
+                      src.batch(i, 0, B).items()}
+
+
+def _leaf_specs(bundle) -> dict:
+    """{state key (the reference's layout): its spec, JSON-ready}."""
+    from repro_torch.models.params import to_jax_state
+    return {k: [list(p) if isinstance(p, tuple) else p for p in sh.spec]
+            for k, sh in _flat(to_jax_state(bundle.cfg,
+                                            bundle.in_shardings[0])).items()}
+
+
+def _cut(full, spec, coord, shape):
+    """The chunk of ``full`` at mesh coordinate ``coord`` of a mesh of
+    ``shape`` under ``spec`` (per-dim parts: None, an axis or a list of
+    axes, the first the slower), as ``local_chunk`` cuts it."""
+    sizes = dict(zip(_axes(shape), shape))
+    at = dict(zip(_axes(shape), coord))
+    out = full
+    for d, part in enumerate(spec):
+        if part is None:
+            continue
+        axes = part if isinstance(part, list) else [part]
+        n = math.prod(sizes[a] for a in axes)
+        idx = 0
+        for a in axes:
+            idx = idx * sizes[a] + at[a]
+        step = full.shape[d] // n
+        out = np.take(out, range(idx * step, (idx + 1) * step), axis=d)
+    return out
+
+
+def mesh_free_reach(arch, over):
+    """How far the mesh-free steps' state moves when their products sum
+    in other orders (``_torch_rounding.spread``), whole, in the
+    reference's layout: {"step<i>/<key>": spread}.  Computed in the test's
+    process once the ranks are done, off their deadline."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models.params import to_jax_state
+    from repro_torch.train import make_step_bundle
+    cfg = _cfg(arch, over, "repro_torch")
+    free = make_step_bundle(cfg, ShapeCfg("t", S, B, "train"))
+    get = _batches(cfg)
+    start = _init_state(free, arch, over)
+
+    def steps():
+        state, out = copy.deepcopy(start), {}
+        for i in range(STEPS):
+            state, _ = free.step_fn(state, get(i))
+            out.update({f"step{i}/{k}": t.detach().numpy().copy()
+                        for k, t in _flat(to_jax_state(cfg, state)).items()})
+        return out
+
+    return spread(steps)
+
+
+def _pod_grad(cfg, params, pod, pods):
+    """The mesh-free gradient of pod ``pod``'s rows of the first batch
+    (one microbatch, one rank on "data") at ``params``, in the
+    reference's layout."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.models.params import to_jax_params
+    model = Model(cfg, device="cpu")
+    model.load_state_dict(params)
+    model.requires_grad_(True)
+    rows = slice(pod * B // pods, (pod + 1) * B // pods)
+    loss, _ = model.loss({k: t[rows] for k, t in _batches(cfg)(0).items()})
+    g = torch.autograd.grad(loss, list(model.parameters()))
+    return {k: t.numpy() for k, t in _flat(to_jax_params(
+        cfg, dict(zip(dict(model.named_parameters()), g)))).items()}
+
+
+def pod_grad_reach(arch, over, pod, pods):
+    """How far :func:`_pod_grad` at the initial parameters moves when its
+    products sum in other orders, computed in the test's process."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.train import make_step_bundle
+    cfg = _cfg(arch, over, "repro_torch")
+    state = _init_state(make_step_bundle(cfg, ShapeCfg("t", S, B, "train")),
+                        arch, over)
+    params = {k: p.detach() for k, p in
+              state["params"].named_parameters()}
+    return spread(lambda: _pod_grad(cfg, params, pod, pods))
+
+
+def cut_reach(reach, name, got_ranks, shape):
+    """``reach`` (whole, from :func:`mesh_free_reach`) cut at each rank's
+    coordinate, keyed as the ranks' chunks ("<name>/step<i>/<key>@<coord>").
+    """
+    import ast
+    out = {}
+    for got in got_ranks:
+        specs = json.loads(str(got[f"{name}/specs"]))
+        coord = next(k for k in got if k.startswith(f"{name}/init/")
+                     ).split("@")[1]
+        at = ast.literal_eval(coord)
+        for k, v in reach.items():
+            step, key = k.split("/", 1)
+            out[f"{name}/{step}/{key}@{coord}"] = _cut(v, specs[key], at,
+                                                      shape)
+    return out
+
+
+@pytest.fixture(scope="module")
+def reach():
+    """Per (arch, config changes): :func:`mesh_free_reach`, computed once,
+    in this process."""
+    cache = {}
+
+    def get(arch, over):
+        # the mesh-free step does not read fsdp_params
+        over = {k: v for k, v in over.items() if k != "fsdp_params"}
+        key = (arch, json.dumps(over, sort_keys=True))
+        if key not in cache:
+            cache[key] = mesh_free_reach(arch, over)
+        return cache[key]
+
+    return get
 
 
 # ---------------------------------------------------------------------------
@@ -263,21 +420,15 @@ def ref_main(out_path: str) -> None:
 
 
 def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
-    import jax
     import torch
     import torch.distributed as dist
-    from repro.configs.base import ShapeCfg as JShape
-    from repro.train import make_step_bundle as jbundle
     from repro_torch.configs.base import ShapeCfg
-    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.distributed.collectives import vocab_parallel_ce
     from repro_torch.distributed.sharding import local_chunk, view_as
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import Model
-    from repro_torch.models.params import (
-        from_jax_state, to_jax_params, to_jax_state,
-    )
-    from repro_torch.train import load_state, make_step_bundle
+    from repro_torch.models.params import to_jax_state
+    from repro_torch.train import make_step_bundle
     from repro_torch.train import steps as steps_mod
     from repro_torch.train.steps import full_state
 
@@ -286,22 +437,7 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
                             rank=rank, world_size=world)
     res = {}
 
-    def init_state(bundle, arch, over):
-        jcfg = _cfg(arch, over, "repro")
-        jstate = jbundle(jcfg, JShape("t", S, B, "train")).init_fn(
-            jax.random.key(0))
-        state = bundle.init_fn(torch.Generator().manual_seed(0))
-        tree = from_jax_state(bundle.cfg, jax.tree.map(np.asarray, jstate))
-        if "ef" in state:       # the reference makes it on a mesh only
-            tree["ef"] = {k: torch.zeros(v.shape)
-                          for k, v in tree["params"].items()}
-        load_state(state, tree)
-        return state
-
-    def batches(cfg):
-        src = SyntheticLM(cfg.vocab_size, S, seed=0)
-        return lambda i: {k: torch.from_numpy(v) for k, v in
-                          src.batch(i, 0, B).items()}
+    init_state, batches = _init_state, _batches
 
     def chunks(prefix, state, bundle):
         """This rank's local chunks in the reference's layout."""
@@ -358,15 +494,20 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
         def __exit__(self, *exc):
             steps_mod.compute_view, steps_mod.gate_chunk = self.saved
 
-    def plain_chunks(prefix, state, bundle):
+    def cut_chunks(state, bundle):
         """The mesh-free step's state cut as ``bundle``'s state is placed,
         at this rank's coordinate (the reference's layout)."""
         full = _flat(to_jax_state(bundle.cfg, state))
         placed = _flat(to_jax_state(bundle.cfg, bundle.in_shardings[0]))
         coord = tuple(bundle.mesh.get_coordinate())
-        for key, t in full.items():
-            res[f"{prefix}/{key}@{coord}"] = local_chunk(
-                t, bundle.mesh, placed[key].placements).numpy().copy()
+        return {f"{key}@{coord}": local_chunk(
+            t, bundle.mesh, placed[key].placements).numpy().copy()
+            for key, t in full.items()}
+
+    def plain_chunks(prefix, state, bundle):
+        for key, t in cut_chunks(state, bundle).items():
+            res[f"{prefix}/{key}"] = t
+
 
     class record_quantizer:
         """The gradient tree the compressed step hands the quantizer
@@ -471,7 +612,6 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
 
             with activation_sharding(mesh, cfg, tp=plan):
                 got = run(local)
-            want = run(full)
 
             def state_chunk(n, t):
                 d = state_dims.get(n, 1)       # heads / channels: dim 1
@@ -481,20 +621,28 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
                 return t.narrow(d, r * size, size)
 
             split = f"{mixer}" in plan.kinds
-            for what, a, b in (("out", got[0], want[0]),
-                               ("out1", got[3], want[3])):
-                res[f"{tag}/{what}"] = a.detach().numpy()
-                res[f"{tag}/{what}/want"] = b.detach().numpy()
-            for n in whole:
-                res[f"{tag}/grad/{n}"] = got[1][n].numpy()
-                res[f"{tag}/grad/{n}/want"] = mine(n, want[1][n]).numpy()
-            for i, (a, b) in enumerate(((got[2], want[2]),
-                                        (got[4], want[4]))):
-                for n in b:
-                    w = b[n].detach()
-                    res[f"{tag}/state{i}/{n}"] = a[n].detach().numpy()
-                    res[f"{tag}/state{i}/{n}/want"] = (
-                        state_chunk(n, w) if split else w).numpy()
+
+            def whole_layer():
+                """The whole layer's results, cut to the rank's share."""
+                out, grads, st, o1, st1 = run(full)
+                cut = {"out": out, "out1": o1}
+                cut.update({f"grad/{n}": mine(n, grads[n]) for n in whole})
+                for i, b in enumerate((st, st1)):
+                    cut.update({f"state{i}/{n}": (
+                        state_chunk(n, t.detach()) if split else t)
+                        for n, t in b.items()})
+                return {k: t.detach().numpy() for k, t in cut.items()}
+
+            want = whole_layer()
+            reach = spread(whole_layer)
+            mixed = {"out": got[0], "out1": got[3]}
+            mixed.update({f"grad/{n}": got[1][n] for n in whole})
+            for i, a in enumerate((got[2], got[4])):
+                mixed.update({f"state{i}/{n}": t for n, t in a.items()})
+            for k, t in mixed.items():
+                res[f"{tag}/{k}"] = t.detach().numpy()
+                res[f"{tag}/{k}/want"] = want[k]
+                res[f"{tag}/{k}/spread"] = reach[k]
 
     for name, (arch, shape, over, _) in CASES.items():
         cfg = _cfg(arch, over, "repro_torch")
@@ -514,6 +662,7 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
                                                           "train"))
             plain = init_state(plain_bundle, arch, over)
             plain_chunks(f"{name}/plain/init", plain, bundle)
+            res[f"{name}/specs"] = np.array(json.dumps(_leaf_specs(bundle)))
         plain_routes = None
         if name in ROUTED:      # the mesh-free step's routing decisions
             free = make_step_bundle(cfg, ShapeCfg("t", S, B, "train"))
@@ -523,17 +672,11 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
         if name in QUANTIZED:
             # the mesh-free gradient of this pod's rows (one microbatch,
             # one rank on "data"), from the same parameters
-            model = Model(cfg, device="cpu")
-            model.load_state_dict(full_state(state)["params"])
-            model.requires_grad_(True)
-            pods = shape[0]
             pod = bundle.mesh.get_coordinate()[0]
-            rows = slice(pod * B // pods, (pod + 1) * B // pods)
-            loss, _ = model.loss({k: t[rows] for k, t in get(0).items()})
-            g = torch.autograd.grad(loss, list(model.parameters()))
-            for k, t in _flat(to_jax_params(cfg, dict(zip(
-                    dict(model.named_parameters()), g)))).items():
-                res[f"{name}/pod_grad/{k}"] = t.numpy()
+            for k, t in _pod_grad(cfg, full_state(state)["params"], pod,
+                                  shape[0]).items():
+                res[f"{name}/pod_grad/{k}"] = t
+            res[f"{name}/pod"] = np.array(pod)
         for i in range(STEPS):
             keep = i == 0 and name not in QUANTIZED
             with record_views(state, keep) as rec, \
@@ -748,22 +891,51 @@ def test_tp_chunks_match_reference_shards(sides, name):
 
 
 @pytest.mark.parametrize("name", PLAIN)
-def test_tp_chunks_match_mesh_free_step(sides, name):
+def test_tp_chunks_match_mesh_free_step(sides, reach, name):
     """Each rank's chunks after each step against the port's mesh-free
     step from the same state, cut at the rank's coordinate, at the flat
-    bars of the reference comparison (``_hold_step``): what the
-    recurrent mixers' tensor parallelism changes, float32 sums in another
-    order, and nothing else."""
+    bars of the reference comparison (``_hold_step``), the moments and
+    the parameter deltas plus twice each entry's spread (``_reach_parts``,
+    ``reach``): what the recurrent
+    mixers' tensor parallelism changes, float32 sums in another order,
+    and nothing else.  xLSTM's gradient of ``embed.embedding`` carries
+    that order through every layer (C14): at step 0 its v moved by up to
+    7.3e-7 past the flat bar on some CPUs' GEMMs, and under
+    ``MKL_CBWR=COMPATIBLE`` its parameter delta at step 1 past the delta
+    bar, each within its spread."""
     _, ranks = sides
     got_ranks = _in_mesh(ranks, name)
     plain = {k.replace("/plain/", "/", 1): v for got in got_ranks
              for k, v in got.items() if k.startswith(f"{name}/plain/")}
+    arch, shape, over, _ = CASES[name]
+    moved = cut_reach(reach(arch, over), name, got_ranks, shape)
     for got in got_ranks:
         for k in (k for k in got if k.startswith(f"{name}/init/")):
             np.testing.assert_array_equal(got[k], plain[k], err_msg=k)
     for i in range(STEPS):
         prev = f"{name}/init" if i == 0 else f"{name}/step{i - 1}"
-        _hold_step(plain, got_ranks, name, i, prev, _lr(i + 1))
+        _hold_step(plain, got_ranks, name, i, prev, _lr(i + 1),
+                   state_parts=_reach_parts(moved), reach=moved)
+
+
+def _reach_parts(reach):
+    """The moments' check of ``_hold_step`` against the mesh-free step:
+    ``_state_parts``' flat bars (rtol 2e-4, atol 2e-4 of the part's
+    largest entry) plus twice each entry's spread, how far the mesh-free
+    step's moments move when its products sum in other orders
+    (``tests/_torch_rounding.py``)."""
+    def parts(ref, got, tag, coord):
+        out = {}
+        for part in ("m", "v"):
+            keys = [k for k in ref if k.startswith(f"{tag}/opt/{part}/")]
+            scale = max(float(np.abs(ref[k]).max()) for k in keys)
+            out[part] = {}
+            for k in (k for k in keys if k.endswith(f"@{coord}")):
+                leaf = k[len(tag) + 7:].split("@")[0]
+                out[part][leaf] = (got[k], ref[k], within(
+                    got[k], ref[k], 2e-4, 2e-4 * scale, reach[k]))
+        return out
+    return parts
 
 
 @pytest.mark.parametrize("name", QUANTIZED)
@@ -773,10 +945,23 @@ def test_quantizer_input_is_the_reference_layout(sides, name):
     storage chunks first: on every rank the tree the quantizer gets is,
     in the reference's layout, the mesh-free gradient of the pod's rows,
     at the gradient bar of ``tests/test_torch_train.py`` (rtol 2e-4, atol
-    2e-4 of the largest |g|).  (Its chunks after the quantizer are not
-    held to the reference's: ROADMAP C16.)"""
+    2e-4 of the largest |g|) plus twice each entry's spread, how far the
+    mesh-free gradient moves when its products sum in other orders
+    (``tests/_torch_rounding.py``).  The gap this bar holds is summation
+    order alone: xlstm-125m's smoke gradient of ``embed.embedding`` is
+    ill-conditioned (C14), and a row whose token sits at the start of a
+    sequence moved by 5e-4 of its size between the mesh and the mesh-free
+    step (row 39: 0.0168 against an atol of 0.0067), where the mesh-free
+    step with its sums reordered moves it by 0.0296, and every parameter
+    moved by one float32 step by 0.0154.  (Its chunks after the quantizer
+    are not held to the reference's: ROADMAP C16.)"""
     _, ranks = sides
+    arch, shape, over, _ = CASES[name]
+    moved = {}
     for got in _in_mesh(ranks, name):
+        pod = int(got[f"{name}/pod"])
+        if pod not in moved:
+            moved[pod] = pod_grad_reach(arch, over, pod, shape[0])
         want = {k[len(f"{name}/pod_grad/"):]: v for k, v in got.items()
                 if k.startswith(f"{name}/pod_grad/")}
         have = {k[len(f"{name}/quantizer_in/"):]: v for k, v in got.items()
@@ -785,8 +970,8 @@ def test_quantizer_input_is_the_reference_layout(sides, name):
         G = max(float(np.abs(v).max()) for v in want.values())
         for k, v in want.items():
             assert have[k].shape == v.shape, k
-            np.testing.assert_allclose(have[k], v, rtol=2e-4, atol=2e-4 * G,
-                                       err_msg=k)
+            assert_within(have[k], v, 2e-4, 2e-4 * G, moved[pod][k],
+                          err_msg=k)
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -924,20 +1109,28 @@ def test_split_mixer_matches_its_whole_layer(sides, arch, layer, mixer, m):
     input: the output, the gradient of every leaf (of sum(out * R), cut
     to the rank's share), the prefill's states (cut to the rank's heads
     or channels) and one decode step from them, at the single-function
-    bar of ``tests/test_torch_models.py`` (float32 atol = rtol = 2e-5)."""
+    bar of ``tests/test_torch_models.py`` (float32 atol = rtol = 2e-5)
+    plus twice each entry's spread: how far the whole layer's results
+    move when its products sum in other orders (``_torch_rounding``).
+    What differs is the order of the row-parallel sums (the mLSTM's
+    ``wq``, ``wk``, ``wv`` and ``w_if``, mamba's ``x_proj`` and
+    ``out_proj``: partial sums over the rank's features, then over the
+    ranks) and the GEMM's blocking of a column slice; the mLSTM's
+    exponential gates carry it to 5.5e-5 in ``grad/up_proj`` (entries up
+    to 25), past the flat bar on every MKL code path."""
     _, ranks = sides
     tag = f"layer/{arch}/{mixer}/{m}"
     for got in ranks[:m]:
         assert mixer in json.loads(str(got[f"{tag}/kinds"]))
         keys = [k for k in got if k.startswith(tag + "/")
-                and not k.endswith(("/want", "/kinds"))]
+                and not k.endswith(("/want", "/kinds", "/spread"))]
         assert any("/grad/" in k for k in keys) and any(
             "/state1/" in k for k in keys)
         for k in keys:
             want = got[k + "/want"]
             assert got[k].shape == want.shape, (k, got[k].shape)
-            np.testing.assert_allclose(got[k], want, rtol=LAYER_TOL,
-                                       atol=LAYER_TOL, err_msg=k)
+            assert_within(got[k], want, LAYER_TOL, LAYER_TOL,
+                          got[k + "/spread"], err_msg=k)
 
 
 @pytest.mark.parametrize("name", list(ONE_RANK))
@@ -982,7 +1175,8 @@ PLANS = [
     # does
     ("xlstm-125m", (16, 16), {}, {"slstm_ffn", "vocab"}),
     ("xlstm-125m", (1, 4), {}, {"mlstm", "slstm", "slstm_ffn", "vocab"}),
-    ("qwen2-7b", (16, 4), {"seq_shard": True}, set()),
+    # seq_shard splits the same kinds, and the plan marks the sequence
+    ("qwen2-7b", (16, 4), {"seq_shard": True}, ALL),
 ]
 
 
@@ -1006,6 +1200,7 @@ def test_tp_plan_of_full_configs(arch, shape, over, kinds):
     from repro_torch.configs import get_config
     plan, shapes = _plan(arch, shape, over)
     assert plan.kinds == kinds
+    assert plan.seq == bool(over.get("seq_shard"))
     cfg = dataclasses.replace(get_config(arch), **over)
     want = {k for k in shapes if _leaf_kind(cfg, k, kinds) in kinds}
     assert set(plan.views) == want
