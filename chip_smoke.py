@@ -833,11 +833,14 @@ def decode_splits(tag, NH, KV, hd) -> dict:
 
 def device_rows(prof) -> list:
     """(device ms, calls, name) of each kernel in a profile: kernel rows
-    only, since an operator's row repeats its kernels' time."""
+    only, since an operator's row repeats its kernels' time, and the
+    port's spans' device rows (their ranges on the card) are none."""
     import torch
+    from repro_torch.obs.spans import NAMES
     return [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in NAMES]
 
 
 def profile_request(tag, eng, walls, vocab: int = 512) -> dict:
@@ -1491,44 +1494,28 @@ def phase_g3() -> dict:
 def profile_train_step(tag, trainer, state, step_s) -> dict:
     """One more step under torch.profiler: device time by kernel, the
     autograd function's backward (ref.attention recomputed and
-    differentiated) and the AdamW update by their ranges, and the idle
-    share against the unprofiled step wall.  ``tag`` names the phase."""
+    differentiated) and the AdamW update by the port's spans
+    (``attn.flash_bwd``, ``optim.adamw``), and the idle share against
+    the unprofiled step wall.  ``tag`` names the phase."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.kernels import ops
-    from repro_torch.optim import AdamW
-    saved = (ops._fa_bwd, AdamW.update)
-
-    def ranged(name, fn):
-        def wrapped(*a, **k):
-            with record_function(name):
-                return fn(*a, **k)
-        return wrapped
-
-    ops._fa_bwd = ranged(f"{tag}.fa_bwd", saved[0])
-    AdamW.update = ranged(f"{tag}.adamw", saved[1])
+    from torch.profiler import ProfilerActivity, profile
     batch = trainer.batches(TRAIN_STEPS)
-    try:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.bundle.step_fn(state, batch)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            trainer.bundle.step_fn(state, batch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        ops._fa_bwd, AdamW.update = saved
-    # the ranges' own device rows (their spans) are not kernels
-    rows = [r for r in device_rows(prof)
-            if not r[2].startswith(f"{tag}.")]
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
+    spans = {"attn.flash_bwd": f"{tag}.fa_bwd", "optim.adamw": f"{tag}.adamw"}
     ranges = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CPU and \
-                e.name.startswith(f"{tag}."):
-            ranges[e.name] = ranges.get(e.name, 0.0) + \
-                e.device_time_total / 1e3
+        if e.device_type == DeviceType.CPU and e.name in spans:
+            key = spans[e.name]
+            ranges[key] = ranges.get(key, 0.0) + e.device_time_total / 1e3
     fa_ms = sum(r[0] for r in rows if "fa_fwd" in r[2])
     gemm = [r for r in rows if any(s in r[2].lower() for s in (
         "gemm", "nvjet", "xmma", "cutlass"))]

@@ -32,21 +32,17 @@ from repro_torch.kernels.flash_attention import (
     attention_flops, flash_attention_fwd,
 )
 from repro_torch.kernels.flash_decode import flash_decode as _flash_decode
+from repro_torch.obs.spans import span
 
 
 def _fa_bwd(q, k, v, g, scale, causal, window, softcap):
     """Grads of ``ref.attention`` at (q, k, v) against the upstream
-    ``g``."""
-    with torch.enable_grad():
+    ``g``, in the span ``attn.flash_bwd`` (autograd's thread)."""
+    with span("attn.flash_bwd"), torch.enable_grad():
         ins = [t.detach().requires_grad_() for t in (q, k, v)]
         out = ref.attention(*ins, scale=scale, causal=causal, window=window,
                             softcap=softcap)
         return torch.autograd.grad(out, ins, g)
-
-
-def _bwd(*args):
-    # ``_fa_bwd`` is looked up at each call: a profiler range can wrap it
-    return _fa_bwd(*args)
 
 
 def _bwd_fake(q, k, v, g, scale, causal, window, softcap):
@@ -57,8 +53,8 @@ _ops = torch.library.Library("repro_torch", "FRAGMENT")
 _ops.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor g, "
             "float scale, bool causal, int window, float softcap) "
             "-> (Tensor, Tensor, Tensor)")
-_ops.impl("flash_attention_bwd", _bwd, "CPU")
-_ops.impl("flash_attention_bwd", _bwd, "CUDA")
+_ops.impl("flash_attention_bwd", _fa_bwd, "CPU")
+_ops.impl("flash_attention_bwd", _fa_bwd, "CUDA")
 torch.library.register_fake("repro_torch::flash_attention_bwd", _bwd_fake,
                             lib=_ops)
 

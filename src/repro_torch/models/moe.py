@@ -76,6 +76,7 @@ from repro_torch.distributed.sharding import (
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import layers as L
 from repro_torch.models.params import dense_init, dtype_of
+from repro_torch.obs import spans
 
 
 def init_moe(cfg) -> dict:
@@ -100,6 +101,40 @@ def capacity_of(m, T: int) -> int:
     return max(1, int(m.capacity_factor * T * m.top_k / m.num_experts))
 
 
+# The (token, choice) pairs that ``route`` decided while a profiler
+# recorded (``obs.spans.on``), and of them those past their expert's
+# capacity: the routed count on the host (it follows from the shapes),
+# the dropped count in an int64 accumulator on each device, read once by
+# ``pair_counts``.  Under remat the recompute routes again and counts
+# again; the dropped share is the same.
+pairs_routed = 0
+_dropped: dict = {}
+
+
+def _count_pairs(keep) -> None:
+    global pairs_routed
+    pairs_routed += keep.numel()
+    acc = _dropped.get(keep.device)
+    if acc is None:
+        acc = _dropped[keep.device] = torch.zeros(
+            (), dtype=torch.int64, device=keep.device)
+    acc += keep.numel() - keep.sum()
+
+
+def pair_counts() -> dict:
+    """{"moe.pairs_routed", "moe.pairs_dropped"} since the last reset
+    (reading the devices' accumulators waits for them)."""
+    return {"moe.pairs_routed": pairs_routed,
+            "moe.pairs_dropped": sum(int(a) for a in _dropped.values())}
+
+
+def reset_pair_counts() -> None:
+    global pairs_routed
+    pairs_routed = 0
+    _dropped.clear()
+
+
+@spans.spanned("moe.route")
 def route(router, xf, cfg, group=None, rows=()):
     """Routing of the flat tokens ``xf`` (T, D).
 
@@ -135,6 +170,8 @@ def route(router, xf, cfg, group=None, rows=()):
     pos = torch.cumsum(onehot, dim=0) - onehot
     slot = torch.gather(pos, 1, flat_ids[:, None])[:, 0]
     keep = slot < capacity_of(m, T)
+    if spans.on():
+        _count_pairs(keep)
     return probs, gate_vals, expert_ids, slot, keep
 
 
@@ -174,33 +211,37 @@ def _experts(params, xin, cfg, gate_vals, expert_ids, slot, keep, *,
     E_l = params["w_up"].shape[0]
     C = capacity_of(cfg.moe, T)
     c_lo, C_l = (0, C) if slots is None else slots
-    ids = expert_ids.reshape(T * k)
-    if E_l < cfg.moe.padded_experts():
-        keep = keep & (ids >= lo) & (ids < lo + E_l)
-        ids = torch.where(keep, ids - lo, 0)
-    if C_l < C:
-        keep = keep & (slot >= c_lo) & (slot < c_lo + C_l)
-        slot = slot - c_lo
-    safe_slot = torch.where(keep, slot, 0)
-    token_idx = torch.arange(T * k, device=xin.device) // k
 
     # scatter tokens into (E_l, C_l, D): each kept pair owns its slot
-    contrib = torch.where(keep[:, None], xin[token_idx], 0)
-    xe = torch.zeros((E_l, C_l, D), dtype=cdt,
-                     device=xin.device).index_put((ids, safe_slot), contrib,
-                                                  accumulate=True)
-    ye = L.ffn(params, xe, cfg)                               # (E_l, C_l, D)
+    with spans.span("moe.dispatch", backward=True) as sp:
+        x = sp.input(xin)
+        ids = expert_ids.reshape(T * k)
+        if E_l < cfg.moe.padded_experts():
+            keep = keep & (ids >= lo) & (ids < lo + E_l)
+            ids = torch.where(keep, ids - lo, 0)
+        if C_l < C:
+            keep = keep & (slot >= c_lo) & (slot < c_lo + C_l)
+            slot = slot - c_lo
+        safe_slot = torch.where(keep, slot, 0)
+        token_idx = torch.arange(T * k, device=xin.device) // k
+        contrib = torch.where(keep[:, None], x[token_idx], 0)
+        xe = sp.output(torch.zeros(
+            (E_l, C_l, D), dtype=cdt, device=xin.device).index_put(
+                (ids, safe_slot), contrib, accumulate=True))
+    with spans.span("moe.experts"):
+        ye = L.ffn(params, xe, cfg)                           # (E_l, C_l, D)
 
     # gather back and combine, token by token in choice order
-    gates = gate_vals.reshape(T * k)
-    if group is not None:
-        gates = _CopyTo.apply(gates, group)
-    weights = torch.where(keep, gates, 0).to(cdt)
-    parts = (ye[ids, safe_slot] * weights[:, None]).view(T, k, D)
-    out = parts[:, 0]
-    for j in range(1, k):
-        out = out + parts[:, j]
-    return out
+    with spans.span("moe.combine", backward=True) as sp:
+        ye, gates = sp.input(ye), sp.input(gate_vals).reshape(T * k)
+        if group is not None:
+            gates = _CopyTo.apply(gates, group)
+        weights = torch.where(keep, gates, 0).to(cdt)
+        parts = (ye[ids, safe_slot] * weights[:, None]).view(T, k, D)
+        out = parts[:, 0]
+        for j in range(1, k):
+            out = out + parts[:, j]
+        return sp.output(out)
 
 
 def _routed(params, xin, xf, cfg, rows=()):

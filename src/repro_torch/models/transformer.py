@@ -45,6 +45,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.params import ParamTree, dtype_of, resolve_device
+from repro_torch.obs.spans import span
 
 
 def _zc(cfg) -> bool:
@@ -98,50 +99,52 @@ def layer_apply(p, x, cfg: ArchConfig, layer: Layer, *, mode: str,
     new_cache is None in train mode, aux the moe layer's ``moe_aux`` and
     ``moe_drop`` (empty for the other ffns)."""
     aux: dict = {}
-    h = _norm(p["norm1"], x, cfg)
-    mixer_cache = cache["mixer"] if mode == "decode" else None
-    if layer.mixer in ("attn", "attn_local"):
-        local = layer.mixer == "attn_local"
-        if mode == "decode":
-            h, new_mixer_cache = attn_mod.attn_apply(
-                p["mixer"], h, cfg, local=local, cache=mixer_cache,
-                cache_pos=cache_pos)
+    with span("layer.mixer"):
+        h = _norm(p["norm1"], x, cfg)
+        mixer_cache = cache["mixer"] if mode == "decode" else None
+        if layer.mixer in ("attn", "attn_local"):
+            local = layer.mixer == "attn_local"
+            if mode == "decode":
+                h, new_mixer_cache = attn_mod.attn_apply(
+                    p["mixer"], h, cfg, local=local, cache=mixer_cache,
+                    cache_pos=cache_pos)
+            else:
+                h, new_mixer_cache = attn_mod.attn_apply(
+                    p["mixer"], h, cfg, local=local, positions=positions,
+                    return_kv=mode == "prefill")
+        elif layer.mixer == "mamba":
+            # a prefill starts from a fresh cache (of the rank's channels
+            # under tensor parallelism) and returns the states after its
+            # last position, as the reference does
+            if mode == "prefill":
+                mixer_cache = ssm_mod.init_mamba_cache(
+                    cfg, x.shape[0], device=x.device,
+                    d_inner=p["mixer"]["conv_b"].shape[0])
+            h, new_mixer_cache = ssm_mod.mamba_apply(p["mixer"], h, cfg,
+                                                     cache=mixer_cache)
+        elif layer.mixer in ("mlstm", "slstm"):
+            apply = (xlstm_mod.mlstm_apply if layer.mixer == "mlstm"
+                     else xlstm_mod.slstm_apply)
+            h, new_mixer_cache = apply(p["mixer"], h, cfg, cache=mixer_cache,
+                                       return_state=mode == "prefill")
         else:
-            h, new_mixer_cache = attn_mod.attn_apply(
-                p["mixer"], h, cfg, local=local, positions=positions,
-                return_kv=mode == "prefill")
-    elif layer.mixer == "mamba":
-        # a prefill starts from a fresh cache (of the rank's channels under
-        # tensor parallelism) and returns the states after its last
-        # position, as the reference does
-        if mode == "prefill":
-            mixer_cache = ssm_mod.init_mamba_cache(
-                cfg, x.shape[0], device=x.device,
-                d_inner=p["mixer"]["conv_b"].shape[0])
-        h, new_mixer_cache = ssm_mod.mamba_apply(p["mixer"], h, cfg,
-                                                 cache=mixer_cache)
-    elif layer.mixer in ("mlstm", "slstm"):
-        apply = (xlstm_mod.mlstm_apply if layer.mixer == "mlstm"
-                 else xlstm_mod.slstm_apply)
-        h, new_mixer_cache = apply(p["mixer"], h, cfg, cache=mixer_cache,
-                                   return_state=mode == "prefill")
-    else:
-        raise ValueError(layer.mixer)
+            raise ValueError(layer.mixer)
 
-    if cfg.post_norm:
-        h = _norm(p["post_norm1"], h, cfg)
-    x = x + h
+        if cfg.post_norm:
+            h = _norm(p["post_norm1"], h, cfg)
+        x = x + h
 
     if layer.ffn != "none":
-        h = _norm(p["norm2"], x, cfg)
-        if layer.ffn == "mlp":
-            h = L.mlp(p["ffn"], h, cfg, tp=current_tp("ffn"))
-        else:
-            h, moe_aux = moe_mod.moe_apply(p["ffn"], h, cfg)
-            aux.update(moe_aux)
-        if cfg.post_norm:
-            h = _norm(p["post_norm2"], h, cfg)
-        x = x + h
+        with span("layer.ffn"):
+            h = _norm(p["norm2"], x, cfg)
+            if layer.ffn == "mlp":
+                h = L.mlp(p["ffn"], h, cfg, tp=current_tp("ffn"))
+            else:
+                h, moe_aux = moe_mod.moe_apply(p["ffn"], h, cfg)
+                aux.update(moe_aux)
+            if cfg.post_norm:
+                h = _norm(p["post_norm2"], h, cfg)
+            x = x + h
     new_cache = None if mode == "train" else {"mixer": new_mixer_cache}
     return x, new_cache, aux
 
@@ -225,13 +228,14 @@ class Model(ParamTree):
 
     def _embed_inputs(self, inputs):
         cfg = self.cfg
-        if cfg.input_mode == "tokens":
-            return L.embed(self.embed, inputs, cfg)
-        x = inputs.to(dtype_of(cfg.compute_dtype))
-        if cfg.embed_scale:
-            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                                 device=x.device)
-        return sublayer_out(x, None)
+        with span("model.embed"):
+            if cfg.input_mode == "tokens":
+                return L.embed(self.embed, inputs, cfg)
+            x = inputs.to(dtype_of(cfg.compute_dtype))
+            if cfg.embed_scale:
+                x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                                     device=x.device)
+            return sublayer_out(x, None)
 
     # --- forward trunk ---------------------------------------------------
 
@@ -297,9 +301,10 @@ class Model(ParamTree):
             return torch.sum(lse - gold)
 
         total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for x_i, l_i in zip(xc, lc):
-            total = total + checkpoint(chunk_loss, x_i, l_i,
-                                       use_reentrant=False)
+        with span("model.logits"):
+            for x_i, l_i in zip(xc, lc):
+                total = total + checkpoint(chunk_loss, x_i, l_i,
+                                           use_reentrant=False)
         ce = total / (B * S)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
@@ -320,7 +325,8 @@ class Model(ParamTree):
                                   positions=positions)
             caches.append(c)
         x = seq_whole(_norm(self.final_norm, x, cfg))
-        return L.logits(self.embed, x[:, -1:], cfg), caches
+        with span("model.logits"):
+            return L.logits(self.embed, x[:, -1:], cfg), caches
 
     @torch.no_grad()
     def decode_step(self, cache, inputs, pos: int):
@@ -338,7 +344,8 @@ class Model(ParamTree):
                                    cache_pos=pos)
             new_cache.append(nc)
         x = _norm(self.final_norm, x, cfg)
-        return L.logits(self.embed, x, cfg), new_cache
+        with span("model.logits"):
+            return L.logits(self.embed, x, cfg), new_cache
 
     # --- logical axes ----------------------------------------------------------
 

@@ -21,6 +21,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.models.params import dtype_of
+from repro_torch.obs.spans import spanned
 
 
 @dataclass(frozen=True)
@@ -72,6 +73,7 @@ class AdamW:
         }
 
     @torch.no_grad()
+    @spanned("optim.adamw")
     def update(self, grads: dict, opt_state: dict, params: dict,
                norm: Optional[torch.Tensor] = None):
         """Updates ``params`` and ``opt_state`` in place; returns both.

@@ -135,6 +135,7 @@ from repro_torch.models.moe import _ep_applicable
 from repro_torch.models.params import (
     dtype_of, from_jax_params, to_jax_params,
 )
+from repro_torch.obs.spans import spanned
 from repro_torch.optim import AdamW, OptConfig, cosine_warmup
 from repro_torch.optim.compress import compressed_pod_allreduce, ef_init
 
@@ -343,6 +344,7 @@ def _accumulate(model, batch, rows: list):
 def _train_bundle(cfg: ArchConfig, shape: ShapeCfg) -> StepBundle:
     opt = make_opt(cfg)
 
+    @spanned("train.step")
     def train_step(state, batch):
         model = state["params"]
         k = cfg.microbatches
@@ -514,6 +516,7 @@ def _mesh_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
     views.update(ep_view)
     gates = _gate_views(tp, mesh)
 
+    @spanned("train.step")
     def train_step(state, batch):
         model_group = (mesh.get_group("model")
                        if sizes.get("model", 1) > 1 else None)
@@ -808,12 +811,14 @@ def _prefill_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
 
 def _decode_bundle(cfg: ArchConfig, shape: ShapeCfg, mesh) -> StepBundle:
     if mesh is None:
+        @spanned("serve.decode_step")
         def serve_step(params: Model, cache, tokens, pos):
             return params.decode_step(cache, tokens, int(pos))
 
         return StepBundle(cfg, shape, None, serve_step)
     sv = _ServeMesh(cfg, shape, mesh, 1)
 
+    @spanned("serve.decode_step")
     def serve_step(params: Model, cache: list, tokens, pos):
         """-> (logits (B, 1, V), a DTensor placed by ``out_shardings[0]``,
         and ``cache``, written in place)."""
