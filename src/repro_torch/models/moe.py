@@ -13,8 +13,12 @@ deterministic and equal to the reference's:
 
 - top-k is a stable descending sort, so among equal probabilities the
   lower expert index comes first, as ``jax.lax.top_k`` orders them;
-- slot positions come from a flat token-major cumsum, which equals the
-  reference's grouped two-level cumsum (integer sums, exact);
+- slot positions come from a stable sort of the flat token-major expert
+  ids (``_slots``): a pair's slot is its rank inside its expert's run of
+  the sorted ids, and a stable sort keeps each run in token-major order,
+  so the rank is the count of that expert's earlier pairs, which is what
+  the reference's grouped two-level cumsum counts (integers, exact), with
+  no host synchronisation;
 - the dispatch scatter adds each kept (expert, slot) pair once and a
   dropped pair adds exact zeros, so its atomics are order-free; the
   combine sums each token's k contributions as a (T, k, D) view in the
@@ -134,6 +138,21 @@ def reset_pair_counts() -> None:
     _dropped.clear()
 
 
+def _slots(expert_ids, E: int):
+    """Each (token, choice) pair's position in its expert's buffer, in
+    token-major order: ``slot`` (T*k,) int64, the number of earlier pairs
+    (token-major) routed to the same expert of ``E``.  The ids are sorted
+    stably as small integers (int16 up to 2**15 experts: fewer radix
+    passes), so each expert's run keeps token-major order, and a pair's
+    rank in its run (its sorted place less its run's first, found by
+    ``searchsorted``) goes back to its own place."""
+    key = torch.int16 if E <= 1 << 15 else torch.int32
+    ids, order = torch.sort(expert_ids.to(key).reshape(-1), stable=True)
+    rank = (torch.arange(ids.numel(), device=ids.device)
+            - torch.searchsorted(ids, ids))
+    return torch.empty_like(rank).scatter_(0, order, rank)
+
+
 @spans.spanned("moe.route")
 def route(router, xf, cfg, group=None, rows=()):
     """Routing of the flat tokens ``xf`` (T, D).
@@ -165,10 +184,7 @@ def route(router, xf, cfg, group=None, rows=()):
     gate_vals, expert_ids = vals[:, :k], ids[:, :k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
-    flat_ids = expert_ids.reshape(T * k)
-    onehot = F.one_hot(flat_ids, E)                       # (T*k, E)
-    pos = torch.cumsum(onehot, dim=0) - onehot
-    slot = torch.gather(pos, 1, flat_ids[:, None])[:, 0]
+    slot = _slots(expert_ids, E)
     keep = slot < capacity_of(m, T)
     if spans.on():
         _count_pairs(keep)

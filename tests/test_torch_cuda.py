@@ -418,3 +418,31 @@ def test_train_steps_on_card_match_cpu(arch, cuda):
         assert int(mg["step"]) == int(mc["step"]) == i + 1
         np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]),
                                    rtol=1e-5)
+
+
+def test_moe_route_slots_on_card_without_host_sync(cuda):
+    """``route`` at granite-moe's train shape (4096 tokens, top-8 of 40
+    experts, capacity 1.25): the slots (by a stable sort) equal a flat
+    token-major one-hot cumsum's, the keep mask is theirs below the
+    capacity, and nothing in ``route`` waits for the card."""
+    from repro_torch.models import moe
+    cfg = get_config("granite-moe-3b-a800m")
+    m, D = cfg.moe, cfg.d_model
+    T, k, E = 4096, m.top_k, m.padded_experts()
+    assert (k, E, m.capacity_factor) == (8, 40, 1.25)
+    router, xf = arrays(7, (D, E), (T, D))
+    router, xf = (router / D ** 0.5).to(cuda), xf.to(cuda)
+    moe.route(router, xf, cfg)                 # warm up the launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, ids, slot, keep = moe.route(router, xf, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    flat = ids.reshape(-1)
+    onehot = torch.nn.functional.one_hot(flat, E)
+    want = torch.gather(torch.cumsum(onehot, 0) - onehot, 1,
+                        flat[:, None])[:, 0]
+    assert slot.dtype == torch.int64 and slot.shape == (T * k,)
+    assert torch.equal(slot, want)
+    assert torch.equal(keep, want < moe.capacity_of(m, T))

@@ -200,3 +200,100 @@ def test_ties_take_the_lower_expert_first():
     assert ids[0].tolist() == list(range(cfg.moe.top_k))
     torch.testing.assert_close(gates, torch.full_like(gates,
                                                       1 / cfg.moe.top_k))
+
+
+def one_hot_cumsum_slots(expert_ids, E):
+    """The slot positions as the port first computed them: a flat
+    token-major cumsum over a (T*k, E) one-hot, exclusive, read at each
+    pair's expert."""
+    flat = expert_ids.reshape(-1)
+    onehot = torch.nn.functional.one_hot(flat, E)
+    pos = torch.cumsum(onehot, dim=0) - onehot
+    return torch.gather(pos, 1, flat[:, None])[:, 0]
+
+
+# (T, top_k, num_experts, pad_experts_to, capacity_factor, logits)
+SLOT_CASES = {
+    "two_pairs": (1, 2, 4, 0, 1.25, "uniform"),
+    "decode_step": (24, 8, 40, 0, 1.25, "uniform"),
+    "granite_train": (4096, 8, 40, 0, 1.25, "uniform"),
+    "llama4_top1": (4096, 1, 128, 0, 1.25, "uniform"),
+    "padded": (300, 2, 6, 8, 1.25, "uniform"),
+    "one_expert": (5000, 1, 40, 0, 1.25, "one"),
+    "zipf": (2048, 8, 40, 0, 1.25, "zipf"),
+    "idle_experts": (1000, 4, 40, 0, 1.25, "ten"),
+    "capacity_one": (64, 2, 8, 0, 0.01, "uniform"),
+}
+
+
+def slot_case(name, device="cpu"):
+    """A port config and router logits (as ``xf`` through an identity
+    router) for ``SLOT_CASES[name]``."""
+    T, k, n, pad, cf, kind = SLOT_CASES[name]
+    _, cfg = moe_cfgs("granite40top8")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, top_k=k, num_experts=n, pad_experts_to=pad,
+        capacity_factor=cf))
+    E = cfg.moe.padded_experts()
+    g = torch.Generator().manual_seed(len(name) * 7 + T)
+    logits = torch.randn((T, E), generator=g)
+    if kind == "one":                  # every pair on expert 3
+        logits[:, 3] += 100.0
+    elif kind == "zipf":               # Gumbel top-k of Zipf(1.2) weights
+        w = torch.arange(1, E + 1, dtype=torch.float32) ** -1.2
+        u = torch.rand((T, E), generator=g).clamp_min(1e-9)
+        logits = torch.log(w) - torch.log(-torch.log(u))
+    elif kind == "ten":                # experts 10.. never win
+        logits[:, 10:] -= 100.0
+    return cfg, torch.eye(E, device=device), logits.to(device)
+
+
+@pytest.mark.parametrize("name", list(SLOT_CASES))
+def test_route_slots_match_one_hot_cumsum(name):
+    """``route``'s slots (by a stable sort) are the one-hot cumsum's
+    integers, and its keep mask is theirs below the capacity: T*k from 2
+    to 32768, padded experts, every pair on one expert, Zipf-skewed ids,
+    experts with no pairs, a capacity of one slot."""
+    cfg, router, logits = slot_case(name)
+    T, k, E = logits.shape[0], cfg.moe.top_k, cfg.moe.padded_experts()
+    _, _, ids, slot, keep = moe.route(router, logits, cfg)
+    want = one_hot_cumsum_slots(ids, E)
+    assert slot.dtype == torch.int64 and keep.dtype == torch.bool
+    assert slot.shape == keep.shape == (T * k,)
+    np.testing.assert_array_equal(slot.numpy(), want.numpy())
+    cap = moe.capacity_of(cfg.moe, T)
+    np.testing.assert_array_equal(keep.numpy(), (want < cap).numpy())
+    counts = torch.bincount(ids.reshape(-1), minlength=E)
+    if name == "one_expert":
+        assert counts[3] == T and slot.tolist() == list(range(T))
+    if name == "idle_experts":
+        assert (counts[10:] == 0).all()
+    if name == "capacity_one":
+        assert cap == 1 and keep.sum() == (counts > 0).sum()
+    if cfg.moe.pad_experts_to:
+        assert (counts[cfg.moe.num_experts:] == 0).all()
+
+
+@pytest.mark.parametrize("E", [1 << 15, (1 << 15) + 1])
+def test_slots_at_the_widest_sort_keys(E):
+    """Expert ids up to 2**15 - 1 sort as int16; more experts sort
+    wider, with the same slots."""
+    g = torch.Generator().manual_seed(E)
+    ids = torch.randint(E - 40, E, (256, 2), generator=g)
+    ids[0, 0] = E - 1
+    np.testing.assert_array_equal(moe._slots(ids, E).numpy(),
+                                  one_hot_cumsum_slots(ids, E).numpy())
+
+
+@pytest.mark.parametrize("name", ["decode_step", "granite_train", "padded"])
+def test_route_on_the_meta_device(name):
+    """The dry run traces ``route`` on meta tensors: every output has
+    its shape and dtype."""
+    cfg, router, logits = slot_case(name, device="meta")
+    T, k, E = logits.shape[0], cfg.moe.top_k, cfg.moe.padded_experts()
+    probs, gates, ids, slot, keep = moe.route(router, logits, cfg)
+    assert [(t.device.type, t.dtype, tuple(t.shape)) for t in (
+        probs, gates, ids, slot, keep)] == [
+        ("meta", torch.float32, (T, E)), ("meta", torch.float32, (T, k)),
+        ("meta", torch.int64, (T, k)), ("meta", torch.int64, (T * k,)),
+        ("meta", torch.bool, (T * k,))]
