@@ -39,6 +39,26 @@ def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.pow(2).mean().sqrt())
 
 
+def worst(values) -> float:
+    """The largest of ``values``; NaN if any is."""
+    values = list(values)
+    return math.nan if any(math.isnan(v) for v in values) else max(values)
+
+
+def state_errs(layers, pairs) -> dict:
+    """{check: the largest ``max_rel`` of each tensor of decode state}
+    over (program, reference) pairs of {layer index: {name: tensor}}, each
+    layer's state under its mixer's ``CHECK`` (attention's ``kv_err``: K
+    and V)."""
+    errs: dict = {}
+    for prog, ref in pairs:
+        for layer in layers:
+            for name, t in ref.get(layer.index, {}).items():
+                errs.setdefault(layer.mixer.CHECK, []).append(
+                    max_rel(prog[layer.index][name], t))
+    return {k: worst(v) for k, v in errs.items()}
+
+
 def logit_gap(ref_logits: torch.Tensor, tokens: torch.Tensor) -> float:
     """The widest gap by which a chosen token's reference logit lies below
     the reference's best at that position: ref_logits (..., V), tokens

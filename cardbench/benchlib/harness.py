@@ -100,7 +100,7 @@ def run_cell(bench: Benchmark, run: Run, seconds: float, trace: bool,
     setup_s = time.perf_counter() - t_start
     log(f"setup: {t0 - t_start:.2f} s before the cell's own, "
         f"{setup_s - (t0 - t_start):.2f} s in it", file=sys.stderr)
-    before = port.launches()
+    before = port.launches(loop.per_unit)
     readers = {m: bench.metric_reader(m) for m in run.cell.per_layer} \
         if trace else {}
     kind = torch.cuda.get_device_name(0) if cuda else "cpu"
@@ -115,7 +115,8 @@ def run_cell(bench: Benchmark, run: Run, seconds: float, trace: bool,
         _, tr = tracing.traced(lambda: loop.window(min(seconds, TRACE_S)),
                                targets, run.device)
     gc.unfreeze()
-    counts = {k: v - before[k] for k, v in port.launches().items()}
+    counts = {k: v - before[k]
+              for k, v in port.launches(loop.per_unit).items()}
     device = {"platform": "gpu" if cuda else "cpu", "kind": kind,
               "count": 1,
               "memory_peak_bytes": (torch.cuda.max_memory_allocated()
@@ -148,8 +149,7 @@ def run_cell(bench: Benchmark, run: Run, seconds: float, trace: bool,
     result.update(metrics=metrics, device=device)
 
     # the check: the program's outputs against the plain reference
-    per_unit = {k: v / max(loop.units, 1) for k, v in counts.items()
-                if k in loop.per_unit}
+    per_unit = {k: v / max(loop.units, 1) for k, v in counts.items()}
     log(f"launches per {loop.unit}: " + ", ".join(
         f"{k} {v:g} (expected {loop.per_unit[k] if cuda else 0})"
         for k, v in per_unit.items()), file=sys.stderr)

@@ -1,19 +1,21 @@
 """Decode: sessions of ``batch`` rows that keep generating against a long
 history, through the decode bundle's ``serve_step``.
 
-The history is a cache of ``cache_len`` positions per row (the port's
-layouts, in ``cache_dtype``) drawn from the seed in set-up: a decode
-step's work does not depend on its values.  A request is the batch's
-rows decoding ``new_tokens`` greedy tokens at positions ``history`` ..
-``history + new_tokens - 1``, from first tokens drawn from the seed;
-each step is timed until its tokens are on the host.  The next request
-reuses the history: its steps write the same positions again before they
-read them, so each is a new session with the same length.  Set-up warms
-``WARMUP_STEPS`` steps.  The check samples ``SAMPLE_ROWS`` (request,
-row) pairs, one row from each of as many equal parts of the batch: the
-first half from the last finished request, whose K and V at the new
-positions are still in the cache and are kept, the rest from requests
-drawn from the seed.
+The history is each mixer's decode state (``layers/<kind>.py``
+``history``: attention's a cache of ``cache_len`` positions per row), in
+the port's layouts, drawn from the seed in set-up: a decode step's work
+does not depend on its values.  A request is the batch's rows decoding
+``new_tokens`` greedy tokens at positions ``history`` .. ``history +
+new_tokens - 1``, from first tokens drawn from the seed; each step is
+timed until its tokens are on the host.  The next request reuses the
+history: attention's steps write the same positions again before they
+read them, and state that a step overwrites in place (a kind's
+``CARRIED``) is put back before each request, so each is a new session
+with the same length.  Set-up warms ``WARMUP_STEPS`` steps.  The check
+samples ``SAMPLE_ROWS`` (request, row) pairs, one row from each of as
+many equal parts of the batch: the first half from the last finished
+request, whose state at the new positions (attention's K and V) is still
+in the cache and is kept, the rest from requests drawn from the seed.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from benchlib import compare, port, weights, work
+from benchlib import compare, kinds, port, weights, work
 
 WARMUP_STEPS = 4
 SAMPLE_ROWS = 4
@@ -34,7 +36,7 @@ class Loop:
     def __init__(self, run):
         self.run = run
         c, t = run.config, run.traffic
-        self.V, self.L = c["vocab_size"], c["num_hidden_layers"]
+        self.V = c["vocab_size"]
         self.B, self.hist = t["batch"], t["history"]
         self.cache_len, self.T = t["cache_len"], t["new_tokens"]
         if self.hist + self.T > self.cache_len:
@@ -43,8 +45,9 @@ class Loop:
                              f"{self.cache_len} positions")
         self.attempted = self.failed = self.units = 0
         self.window_s = 0.0
-        self.itl, self.host_s, self.works = [], [], []
-        self.per_unit = {"flash_decode": self.L}
+        self.itl, self.host_s, self.steps = [], [], []   # steps: positions
+        self.layers = kinds.layers(c)
+        self.per_unit = kinds.launches(c, "decode")
         self.requests = []          # (first tokens (B,), served (T, B))
 
     def setup(self):
@@ -53,12 +56,13 @@ class Loop:
         self.model = port.bind_model(run.arch, c, views)
         self.bundle = port.step_bundle(run.arch, run.cell.name,
                                        self.cache_len, self.B, "decode")
-        self.cache = port.cache_from(run.arch, [
-            (weights.history_layer(c, run.seed, g, "k", self.B,
-                                   self.cache_len, run.device),
-             weights.history_layer(c, run.seed, g, "v", self.B,
-                                   self.cache_len, run.device))
-            for g in range(self.L)])
+        states = [layer.mixer.history(c, run.seed, layer.index, self.B,
+                                      self.cache_len, run.device)
+                  for layer in self.layers]
+        self.cache = port.cache_from(run.arch, c, states, self.cache_len)
+        self.carried = [(t, t.clone()) for layer, st in
+                        zip(self.layers, states) for k, t in st.items()
+                        if k in layer.mixer.CARRIED]
         tok = self._first(-1)
         for i in range(WARMUP_STEPS):
             tok, _, _ = self.step(tok, self.hist + i)
@@ -74,14 +78,10 @@ class Loop:
         fault, B = self.run.fault, self.B
         cache = self.cache
         if fault == "unchanged":
-            cache = [{"l0": {"mixer": {k: t.clone() for k, t in
-                                       g["l0"]["mixer"].items()}}}
-                     for g in cache]
+            cache = port.map_cache(cache, torch.clone)
         t0 = time.perf_counter()
         if fault == "half_batch":
-            half = [{"l0": {"mixer": {k: t[:B // 2] for k, t in
-                                      g["l0"]["mixer"].items()}}}
-                    for g in cache]
+            half = port.map_cache(cache, lambda t: t[:B // 2])
             logits, _ = self.bundle.step_fn(self.model, half, tok[:B // 2],
                                             pos)
         else:
@@ -100,7 +100,8 @@ class Loop:
         first = self._first(r)
         tok, ok = first, True
         served = np.empty((self.T, self.B), dtype=np.int64)
-        c = self.run.config
+        for t, history in self.carried:
+            t.copy_(history)
         for i in range(self.T):
             pos = self.hist + i
             t0 = time.perf_counter()
@@ -108,7 +109,7 @@ class Loop:
                 tok, pos, alter=self.run.fault == "altered" and i == 1)
             self.itl.append(time.perf_counter() - t0)
             self.host_s.append(self.call_s)
-            self.works.append(work.decode_step(c, self.B, pos))
+            self.steps.append(pos)
             ok &= fin
         self.units += self.T
         self.requests.append((first[:, 0].cpu().numpy(), served))
@@ -128,7 +129,10 @@ class Loop:
                 "itl_p95_ms": float(np.percentile(self.itl, 95)) * 1e3}
 
     def least_s(self, pk) -> float:
-        return sum(work.least_s(f, b, pk) for f, b in self.works)
+        c = self.run.config
+        each = {pos: work.least_s(*work.decode_step(c, self.B, pos), pk)
+                for pos in set(self.steps)}
+        return sum(each[pos] for pos in self.steps)
 
     # --- the check ----------------------------------------------------------
 
@@ -147,17 +151,18 @@ class Loop:
     def kept(self) -> dict:
         pairs = self.sample()
         rows = [row for _, row, kv in pairs if kv]
-        sl = slice(self.hist, self.hist + self.T)
-        k = torch.stack([g["l0"]["mixer"]["k"][rows][..., sl]
-                         .permute(0, 3, 1, 2) for g in self.cache])
-        v = torch.stack([g["l0"]["mixer"]["v"][rows][:, :, sl]
-                         .permute(0, 2, 1, 3) for g in self.cache])
+        new = slice(self.hist, self.hist + self.T)
+        state = {}
+        for layer in self.layers:
+            got = layer.mixer.port_decode(port.layer_state(self.cache, layer),
+                                          rows, new)
+            state[layer.index] = {k: t.cpu() for k, t in got.items()}
         return {"pairs": pairs,
                 "served": torch.tensor(np.stack(
                     [self.requests[r][1][:, row] for r, row, _ in pairs])),
                 "first": torch.tensor(
                     [int(self.requests[r][0][row]) for r, row, _ in pairs]),
-                "k": k.cpu(), "v": v.cpu()}
+                "state": state}
 
     def release(self):
         del self.model, self.bundle, self.cache
@@ -173,34 +178,31 @@ class Loop:
         tokens = torch.cat([prog["first"][:, None],
                             prog["served"][:, :-1]], 1).to(dev)
 
-        def history(g):
-            out = []
-            for kind, perm in (("k", (0, 3, 1, 2)), ("v", (0, 2, 1, 3))):
-                t = weights.history_layer(c, run.seed, g, kind, self.B,
-                                          self.cache_len, dev)
-                t = t[rows].permute(*perm)[:, :self.hist].float()
-                out.append(t)
-            return tuple(out)
+        def history(i):
+            mixer = self.layers[i].mixer
+            return mixer.ref_history(mixer.history(
+                c, run.seed, i, self.B, self.cache_len, dev), rows, self.hist)
 
         w = weights.make(c, run.seed, dev)
         with plain.float32_products():
-            logits, k, v = run.reference.extend(w, c, tokens, self.hist,
-                                                history, lp)
+            logits, state = run.reference.extend(w, c, tokens, self.hist,
+                                                 history, lp)
         keep = [i for i, (_, _, kv) in enumerate(pairs) if kv]
         out = {"logits": logits.cpu(), "served": logits.argmax(-1).cpu(),
-               "k": k[:, keep].cpu(), "v": v[:, keep].cpu()}
-        del w, logits, k, v
+               "state": {i: {k: t[keep].cpu() for k, t in s.items()}
+                         for i, s in state.items()}}
+        del w, logits, state
         port.release()
         return out
 
     def compare(self, prog: dict, ref: dict) -> dict:
         """gap: the widest gap by which a served token's reference logit
-        lies below the reference's best at its position; kv_err: K and V
-        of each layer at the new positions of the rows still in the cache,
-        max |prog - ref| over the reference's root mean square."""
-        L = ref["k"].shape[0]
+        lies below the reference's best at its position; the mixers'
+        checks of the rows still in the cache (kv_err: K and V of each
+        attention layer at the new positions), max |prog - ref| over the
+        reference's root mean square."""
         return {
             "gap": compare.logit_gap(ref["logits"], prog["served"]),
-            "kv_err": max(compare.max_rel(prog[kind][g], ref[kind][g])
-                          for kind in ("k", "v") for g in range(L)),
+            **compare.state_errs(self.layers,
+                                 [(prog["state"], ref["state"])]),
         }

@@ -10,9 +10,10 @@ Set-up warms the longest and the shortest length.  The check samples
 ``SAMPLE_REQUESTS`` requests of the first cycle: the longest, and the
 rest drawn from the seed among the shorter half of the lengths, so that
 the float32 reference over them takes less time than the window.  It
-keeps each one's last-position logits and the K and V the prefill wrote
-at ``SAMPLE_POSITIONS`` positions (the first and the last among them;
-every position of a shorter prompt).
+keeps each one's last-position logits and the decode state the prefill
+wrote, each mixer's at ``SAMPLE_POSITIONS`` positions (the first and the
+last among them; every position of a shorter prompt): attention's K and
+V there.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from benchlib import compare, port, weights, work
+from benchlib import compare, kinds, port, weights, work
 
 SAMPLE_REQUESTS = 2
 SAMPLE_POSITIONS = 64
@@ -51,8 +52,9 @@ class Loop:
         self.attempted = self.failed = self.units = 0
         self.window_s = 0.0
         self.cycles = 0
-        self.works = []             # (FLOPs, bytes) of each request
-        self.per_unit = {"flash_attention": c["num_hidden_layers"]}
+        self.served = []            # the index of each request's length
+        self.layers = kinds.layers(c)
+        self.per_unit = kinds.launches(c, "prefill")
         self.outputs = {}
 
     def _positions(self, j: int) -> list[int]:
@@ -94,18 +96,16 @@ class Loop:
             served = (served + 1) % self.V
         if keep is not None:
             P = torch.tensor(self.positions[keep], device=ids.device)
-            k = torch.stack([g["l0"]["mixer"]["k"][0][:, :, P]
-                             .permute(2, 0, 1) for g in cache])
-            v = torch.stack([g["l0"]["mixer"]["v"][0][:, P]
-                             .permute(1, 0, 2) for g in cache])
+            state = {layer.index: layer.mixer.port_prefill(
+                port.layer_state(cache, layer), P) for layer in self.layers}
             if self.run.fault == "unchanged":
-                k, v = torch.zeros_like(k), torch.zeros_like(v)
+                state = {i: {k: torch.zeros_like(t) for k, t in s.items()}
+                         for i, s in state.items()}
             self.outputs[keep] = {"served": served, "logits": last.clone(),
-                                  "k": k, "v": v}
+                                  "state": state}
         return bool(host[1])
 
     def window(self, seconds: float):
-        c = self.run.config
         t0 = time.perf_counter()
         cycle = self.cycles
         self.tokens = 0
@@ -117,7 +117,7 @@ class Loop:
                 self.units += 1
                 self.failed += not ok
                 self.tokens += self.lengths[j]
-                self.works.append(work.prefill(c, self.lengths[j]))
+                self.served.append(j)
             cycle += 1
             if time.perf_counter() - t0 >= seconds:
                 break
@@ -129,11 +129,15 @@ class Loop:
         return {"prefill_tokens_per_s": self.tokens / self.window_s}
 
     def least_s(self, pk) -> float:
-        return sum(work.least_s(f, b, pk) for f, b in self.works)
+        c = self.run.config
+        each = {j: work.least_s(*work.prefill(c, self.lengths[j]), pk)
+                for j in set(self.served)}
+        return sum(each[j] for j in self.served)
 
     def kept(self) -> dict:
-        return {j: {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
-                    for k, v in o.items()} for j, o in self.outputs.items()}
+        return {j: {"served": o["served"], "logits": o["logits"].cpu(),
+                    "state": _cpu(o["state"])}
+                for j, o in self.outputs.items()}
 
     def release(self):
         del self.model, self.bundle
@@ -150,28 +154,33 @@ class Loop:
         with plain.float32_products():
             for j in self.sample:
                 P = torch.tensor(self.positions[j], device=run.device)
-                logits, k, v = run.reference.prefill(
-                    w, c, self.prompt(0, j), P, lp)
+                logits, state = run.reference.prefill(
+                    w, c, self.prompt(0, j),
+                    lambda i, s: self.layers[i].mixer.ref_prefill(s, P), lp)
                 out[j] = {"served": int(logits.argmax()),
-                          "logits": logits.cpu(), "k": k.cpu(),
-                          "v": v.cpu()}
+                          "logits": logits.cpu(), "state": _cpu(state)}
         del w
         port.release()
         return out
 
     def compare(self, prog: dict, ref: dict) -> dict:
         """logit_err: the last position's logits, max |prog - ref| over
-        the reference's root mean square; kv_err: the same of K and V of
-        each layer at the sampled positions; token_mismatch: requests
-        whose first token is not their logits' largest (exact)."""
+        the reference's root mean square; the mixers' checks (kv_err: the
+        same of K and V of each attention layer at the sampled positions);
+        token_mismatch: requests whose first token is not their logits'
+        largest (exact)."""
         return {
-            "logit_err": max(compare.max_rel(prog[j]["logits"],
-                                             ref[j]["logits"])
-                             for j in self.sample),
-            "kv_err": max(compare.max_rel(prog[j][kind][g], ref[j][kind][g])
-                          for j in self.sample for kind in ("k", "v")
-                          for g in range(len(ref[j]["k"]))),
+            "logit_err": compare.worst(
+                compare.max_rel(prog[j]["logits"], ref[j]["logits"])
+                for j in self.sample),
+            **compare.state_errs(self.layers, [
+                (prog[j]["state"], ref[j]["state"]) for j in self.sample]),
             "token_mismatch": sum(
                 prog[j]["served"] != int(prog[j]["logits"].argmax())
                 for j in self.sample),
         }
+
+
+def _cpu(state: dict) -> dict:
+    """{layer: {name: tensor}} on the host."""
+    return {i: {k: t.cpu() for k, t in s.items()} for i, s in state.items()}

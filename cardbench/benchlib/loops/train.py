@@ -19,7 +19,7 @@ import time
 
 import torch
 
-from benchlib import compare, port, weights, work
+from benchlib import compare, kinds, port, weights, work
 from benchlib.synthetic import SyntheticLM
 
 # the share of the median leaf's first gradient under which a leaf moves
@@ -42,9 +42,10 @@ class Loop:
                                 zipf_a=t["zipf_a"])
         self.attempted = self.failed = self.units = 0
         self.window_s = 0.0
-        remat = run.arch.remat != "none"
-        self.per_unit = {"flash_attention":
-                         c["num_hidden_layers"] * (2 if remat else 1)}
+        # remat launches each forward kernel again in the backward pass
+        times = 2 if run.arch.remat != "none" else 1
+        self.per_unit = {k: n * times for k, n in
+                         kinds.launches(c, "train").items()}
 
     def batch(self, i: int) -> dict:
         b = self.data.batch(i, 0, self.B)

@@ -10,44 +10,37 @@ import math
 import torch
 from torch import nn
 
-from benchlib import weights
+from benchlib import kinds, weights
 
 # the configuration file's keys and the port's ArchConfig fields they fix
+# (each layer kind checks its own: benchlib.kinds)
 _ARCH_KEYS = {
     "hidden_size": "d_model", "num_hidden_layers": "n_layers",
-    "num_attention_heads": "n_heads", "num_key_value_heads": "n_kv_heads",
-    "head_dim": "head_dim_", "vocab_size": "vocab_size",
-    "rope_theta": "rope_theta", "rms_norm_eps": "norm_eps",
-    "attention_bias": "qkv_bias", "tie_word_embeddings": "tie_embeddings",
-    "hidden_act": "act", "param_dtype": "param_dtype",
-    "compute_dtype": "compute_dtype", "opt_dtype": "opt_dtype",
-    "cache_dtype": "cache_dtype", "remat": "remat",
+    "vocab_size": "vocab_size", "rms_norm_eps": "norm_eps",
+    "tie_word_embeddings": "tie_embeddings", "hidden_act": "act",
+    "param_dtype": "param_dtype", "compute_dtype": "compute_dtype",
+    "opt_dtype": "opt_dtype", "cache_dtype": "cache_dtype",
+    "remat": "remat",
 }
 
 
 def arch_config(c: dict, arch=None):
     """The port's ``ArchConfig`` for the configuration file ``c``
     (``get_config(c["arch"])`` unless a test passes ``arch``), checked
-    against every size and setting the file states: the run fails on the
-    first difference rather than measure another model."""
+    against every size and setting the file states, its period of layer
+    kinds and what each kind reads: the run fails on the first
+    difference rather than measure another model."""
     from repro_torch.configs import get_config
     arch = get_config(c["arch"]) if arch is None else arch
-    want = {a: c[k] for k, a in _ARCH_KEYS.items()}
-    got = {a: getattr(arch, a) for a in want}
-    if arch.moe is not None:
-        want.update(experts=c["num_local_experts"],
-                    top_k=c["num_experts_per_tok"],
-                    d_ff=c["intermediate_size"],
-                    capacity_factor=c["capacity_factor"])
-        got.update(experts=arch.moe.num_experts, top_k=arch.moe.top_k,
-                   d_ff=arch.moe.d_ff,
-                   capacity_factor=arch.moe.capacity_factor)
-    else:
-        want["d_ff"], got["d_ff"] = c["intermediate_size"], arch.d_ff
-    want["gated_mlp"], got["gated_mlp"] = True, arch.gated_mlp
-    want["pattern"] = "attn/moe" if arch.moe is not None else "attn/mlp"
-    got["pattern"] = " ".join(f"{x.mixer}/{x.ffn}" for x in arch.pattern)
-    diff = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+    kinds.layers(c)         # every kind found, in its place, whole periods
+    diff = {a: (getattr(arch, a), c[k]) for k, a in _ARCH_KEYS.items()}
+    period = kinds.period(c)
+    for name in dict.fromkeys(n for pair in period for n in pair):
+        diff.update({f"{name}.{k}": v for k, v in
+                     kinds.kind(name).check(c, arch).items()})
+    diff["pattern"] = (" ".join(f"{x.mixer}/{x.ffn}" for x in arch.pattern),
+                       " ".join(f"{m}/{f}" for m, f in period))
+    diff = {k: v for k, v in diff.items() if v[0] != v[1]}
     if diff:
         raise ValueError(f"{c['name']}: the port's {arch.name} differs from "
                          f"the configuration file (port, file): {diff}")
@@ -95,22 +88,40 @@ def bind_model(arch, c: dict, views: dict, *, trainable: bool = False):
     return model
 
 
-def cache_from(arch, layers: list) -> list:
+def cache_from(arch, c: dict, states: list, length: int) -> list:
     """The port's decode cache (one dict per group) over the benchmark's
-    per-layer (K, V) tensors, checked against ``Model.init_cache``'s
-    shapes, dtypes and layout on meta tensors."""
+    per-layer decode state (``layers/<kind>.py`` ``history``, in layer
+    order, of ``length`` positions), checked against
+    ``Model.init_cache``'s keys, shapes and dtypes on meta tensors."""
     from repro_torch.models import Model
-    B, S = layers[0][0].shape[0], layers[0][0].shape[3]
-    meta = Model(arch, device="meta").init_cache(B, S, layers[0][0].dtype)
-    cache = [{"l0": {"mixer": {"k": k, "v": v}}} for k, v in layers]
-    for m, c in zip(meta, cache, strict=True):
-        for kind in ("k", "v"):
-            a, b = m["l0"]["mixer"][kind], c["l0"]["mixer"][kind]
-            if a.shape != b.shape or a.dtype != b.dtype:
-                raise ValueError(f"cache layout: port {tuple(a.shape)} "
-                                 f"{a.dtype}, benchmark {tuple(b.shape)} "
-                                 f"{b.dtype}")
+    P = len(arch.pattern)
+    cache = [{f"l{i}": {"mixer": states[g * P + i]} for i in range(P)}
+             for g in range(len(states) // P)]
+    rows = next(iter(states[0].values())).shape[0]
+    meta = Model(arch, device="meta").init_cache(
+        rows, length, weights.DTYPES[c["cache_dtype"]])
+
+    def layout(tree):
+        return [{i: {k: (tuple(t.shape), t.dtype)
+                     for k, t in layer["mixer"].items()}
+                 for i, layer in group.items()} for group in tree]
+
+    if layout(meta) != layout(cache):
+        raise ValueError(f"cache layout: port {layout(meta)[:1]}, "
+                         f"benchmark {layout(cache)[:1]}")
     return cache
+
+
+def layer_state(cache: list, layer) -> dict:
+    """The decode state of ``layer`` (a ``kinds.Layer``) in the port's
+    cache."""
+    return cache[layer.g][f"l{layer.i}"]["mixer"]
+
+
+def map_cache(cache: list, fn) -> list:
+    """The port's cache with ``fn`` applied to each of its tensors."""
+    return [{i: {"mixer": {k: fn(t) for k, t in layer["mixer"].items()}}
+             for i, layer in group.items()} for group in cache]
 
 
 def step_bundle(arch, name: str, seq: int, batch: int, kind: str):
@@ -127,11 +138,11 @@ def make_opt_state(arch, model) -> dict:
     return make_opt(arch).init(dict(model.named_parameters()))
 
 
-def launches() -> dict:
-    """The kernel wrappers' launch counters (CUDA launches only)."""
-    fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    fd = importlib.import_module("repro_torch.kernels.flash_decode")
-    return {"flash_attention": fa.launches, "flash_decode": fd.launches}
+def launches(names) -> dict:
+    """The launch counters (CUDA launches only) of the kernel wrappers
+    ``repro_torch.kernels.<name>`` for each of ``names``."""
+    return {k: importlib.import_module(f"repro_torch.kernels.{k}").launches
+            for k in names}
 
 
 def release() -> None:

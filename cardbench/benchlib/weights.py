@@ -22,6 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from benchlib import kinds
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -45,42 +47,28 @@ class Leaf:
     std: float
 
 
+def dense(name: str, shape, fan_in: int) -> Leaf:
+    """A matrix: N(0, 1) / sqrt(fan_in)."""
+    return Leaf(name, tuple(shape), 0.0, 1.0 / math.sqrt(fan_in))
+
+
+def norm(name: str, d: int) -> Leaf:
+    """A norm's scale: 1 + 0.1 * N(0, 1)."""
+    return Leaf(name, (d,), 1.0, 0.1)
+
+
 def leaf_specs(c: dict) -> list[Leaf]:
-    """Every weight of the configuration ``c`` (a ``configs/*.json``)."""
+    """Every weight of the configuration ``c`` (a ``configs/*.json``): the
+    embedding and head, each layer's sublayers as its kinds lay them out
+    (``benchlib.kinds``), the final norm."""
     D, V = c["hidden_size"], c["vocab_size"]
-    H, KV, hd = (c["num_attention_heads"], c["num_key_value_heads"],
-                 c["head_dim"])
-    F = c["intermediate_size"]
-    E = c.get("num_local_experts", 0)
-
-    def dense(name, shape, fan_in):
-        return Leaf(name, tuple(shape), 0.0, 1.0 / math.sqrt(fan_in))
-
     leaves = [Leaf("embed.embedding", (V, D), 0.0, 0.02)]
     if not c["tie_word_embeddings"]:
         leaves.append(dense("embed.unembed", (D, V), D))
-    for g in range(c["num_hidden_layers"]):
-        p = f"groups.{g}.l0."
-        leaves += [Leaf(p + "norm1.scale", (D,), 1.0, 0.1),
-                   dense(p + "mixer.wq", (D, H * hd), D),
-                   dense(p + "mixer.wk", (D, KV * hd), D),
-                   dense(p + "mixer.wv", (D, KV * hd), D),
-                   dense(p + "mixer.wo", (H * hd, D), H * hd)]
-        if c["attention_bias"]:
-            leaves += [Leaf(p + "mixer.bq", (H * hd,), 0.0, 0.1),
-                       Leaf(p + "mixer.bk", (KV * hd,), 0.0, 0.1),
-                       Leaf(p + "mixer.bv", (KV * hd,), 0.0, 0.1)]
-        leaves.append(Leaf(p + "norm2.scale", (D,), 1.0, 0.1))
-        if E:
-            leaves += [dense(p + "ffn.router", (D, E), D),
-                       dense(p + "ffn.w_up", (E, D, F), D),
-                       dense(p + "ffn.w_gate", (E, D, F), D),
-                       dense(p + "ffn.w_down", (E, F, D), F)]
-        else:
-            leaves += [dense(p + "ffn.w_up", (D, F), D),
-                       dense(p + "ffn.w_gate", (D, F), D),
-                       dense(p + "ffn.w_down", (F, D), F)]
-    leaves.append(Leaf("final_norm.scale", (D,), 1.0, 0.1))
+    for layer in kinds.layers(c):
+        for kind in layer.kinds:
+            leaves += kind.leaves(c, layer.prefix)
+    leaves.append(norm("final_norm.scale", D))
     return leaves
 
 
@@ -107,20 +95,12 @@ def make(c: dict, seed: int, device) -> dict:
     return views
 
 
-# ---------------------------------------------------------------------------
-# The decode history: a bf16 KV cache drawn from the seed
-# ---------------------------------------------------------------------------
-
-
-def history_layer(c: dict, seed: int, layer: int, kind: str, batch: int,
-                  length: int, device) -> torch.Tensor:
-    """Layer ``layer``'s K (``kind`` "k": (B, KV, hd, S)) or V ("v":
-    (B, KV, S, hd)) cache, N(0, 1) in ``c["cache_dtype"]``: the port's
-    decode layouts (the values are the benchmark's)."""
-    KV, hd = c["num_key_value_heads"], c["head_dim"]
-    shape = ((batch, KV, hd, length) if kind == "k"
-             else (batch, KV, length, hd))
+def normal(shape, dtype: str, seed: int, stream: tuple,
+           device) -> torch.Tensor:
+    """N(0, 1) of ``shape`` in ``dtype`` (a name of ``DTYPES``), drawn on
+    ``device`` from the stream ``stream`` of the run seed ``seed``: a
+    mixer's decode history (``layers/<kind>.py`` ``history``)."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(seed_of(seed, 2, layer, 0 if kind == "k" else 1))
-    t = torch.empty(shape, dtype=DTYPES[c["cache_dtype"]], device=device)
+    gen.manual_seed(seed_of(seed, *stream))
+    t = torch.empty(shape, dtype=DTYPES[dtype], device=device)
     return t.normal_(generator=gen)

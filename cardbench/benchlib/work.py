@@ -12,6 +12,8 @@ the optimizer state; for a decode step the cache read to its position).
 """
 from __future__ import annotations
 
+from benchlib import kinds
+
 # published dense bf16 peaks and HBM bandwidth (NVIDIA's data sheet, SXM)
 PEAKS = {
     "NVIDIA H100 80GB HBM3": {"flops": 989e12, "bytes_per_s": 3.35e12},
@@ -63,46 +65,47 @@ def decode_call(q_shape, k_shape, pos: int, *, window=0, q_itemsize=2,
 
 
 # ---------------------------------------------------------------------------
-# Whole steps of a configuration (c: a configs/*.json)
+# Whole steps of a configuration (c: a configs/*.json), summed over its
+# layers' kinds (benchlib.kinds)
 # ---------------------------------------------------------------------------
 
 
-def _layer_params(c: dict) -> tuple[int, int]:
-    """(matrix parameters a token passes through in one layer, all of the
-    layer's parameters)."""
-    D, H, KV, hd = (c["hidden_size"], c["num_attention_heads"],
-                    c["num_key_value_heads"], c["head_dim"])
-    F, E = c["intermediate_size"], c.get("num_local_experts", 0)
-    attn = D * H * hd + 2 * D * KV * hd + H * hd * D
-    bias = (H + 2 * KV) * hd if c["attention_bias"] else 0
-    if E:
-        k = c["num_experts_per_tok"]
-        return (attn + D * E + k * 3 * D * F,
-                attn + bias + D * E + E * 3 * D * F + 2 * D)
-    return attn + 3 * D * F, attn + bias + 3 * D * F + 2 * D
+def _kinds(c: dict) -> list:
+    """The kind of every sublayer of ``c``, mixers and ffns."""
+    return [k for layer in kinds.layers(c) for k in layer.kinds]
+
+
+def _mixers(c: dict) -> list:
+    return [layer.mixer for layer in kinds.layers(c)]
 
 
 def n_params(c: dict) -> int:
     D, V = c["hidden_size"], c["vocab_size"]
     head = 0 if c["tie_word_embeddings"] else D * V
-    return V * D + head + c["num_hidden_layers"] * _layer_params(c)[1] + D
+    return V * D + head + sum(k.params(c) for k in _kinds(c)) + D
 
 
-def _attn_flops(c: dict, B: int, sq: int, sk: int) -> int:
-    """Forward attention products of all layers: 4 H hd a pair."""
-    return (4 * B * c["num_attention_heads"] * c["head_dim"] *
-            causal_pairs(sq, sk) * c["num_hidden_layers"])
+def _matrix(c: dict) -> int:
+    """The matrix parameters a token passes through in all layers."""
+    return sum(k.matrix(c) for k in _kinds(c))
+
+
+def _mixer_flops(c: dict, B: int, sq: int, sk: int) -> int:
+    """The mixers' forward FLOPs beyond the products (attention's: 4 H hd
+    a causal pair)."""
+    return sum(k.flops(c, B, sq, sk) for k in _mixers(c))
 
 
 def train_step(c: dict, B: int, S: int) -> tuple[int, int]:
     """One optimizer step on B x S tokens: 6 FLOPs a matrix parameter a
-    token (forward 2, backward 4) plus 3x the forward attention products;
-    bytes: the bf16 weights read in the forward and the backward, the
-    gradients written, and AdamW reading the weights, gradients and both
-    float32 moments and writing the weights and moments."""
+    token (forward 2, backward 4) plus 3x the mixers' forward FLOPs beyond
+    the products; bytes: the bf16 weights read in the forward and the
+    backward, the gradients written, and AdamW reading the weights,
+    gradients and both float32 moments and writing the weights and
+    moments."""
     D, V = c["hidden_size"], c["vocab_size"]
-    per_token = c["num_hidden_layers"] * _layer_params(c)[0] + D * V
-    flops = 6 * per_token * B * S + 3 * _attn_flops(c, B, S, S)
+    per_token = _matrix(c) + D * V
+    flops = 6 * per_token * B * S + 3 * _mixer_flops(c, B, S, S)
     w = 2 if c["param_dtype"] == "bfloat16" else 4
     o = 4 if c["opt_dtype"] == "float32" else 2
     P = n_params(c)
@@ -112,33 +115,28 @@ def train_step(c: dict, B: int, S: int) -> tuple[int, int]:
 
 def prefill(c: dict, S: int) -> tuple[int, int]:
     """One prompt of S tokens: 2 FLOPs a matrix parameter a token, the
-    forward attention products over the causal pairs, the head on the last
-    position; bytes: the weights read once (the embedding's S rows), the
-    K and V cache written."""
+    mixers' forward FLOPs beyond the products (attention's over the causal
+    pairs), the head on the last position; bytes: the weights read once
+    (the embedding's S rows), the mixers' decode state written (K and V
+    of every position)."""
     D, V = c["hidden_size"], c["vocab_size"]
-    L, KV, hd = c["num_hidden_layers"], c["num_key_value_heads"], \
-        c["head_dim"]
-    flops = (2 * L * _layer_params(c)[0] * S + _attn_flops(c, 1, S, S) +
-             2 * D * V)
+    flops = 2 * _matrix(c) * S + _mixer_flops(c, 1, S, S) + 2 * D * V
     it = 2 if c["param_dtype"] == "bfloat16" else 4
-    cache_it = 2 if c["cache_dtype"] == "bfloat16" else 4
     nbytes = (it * (n_params(c) - V * D + S * D) +
-              cache_it * 2 * L * KV * hd * S)
+              sum(k.state_written(c, S) for k in _mixers(c)))
     return flops, nbytes
 
 
 def decode_step(c: dict, B: int, pos: int) -> tuple[int, int]:
     """One token for each of B rows at position ``pos``: 2 FLOPs a matrix
-    parameter and the head a row, attention over keys 0 .. pos; bytes: the
-    weights read once (the embedding's B rows) and each row's cache read
-    to ``pos``."""
+    parameter and the head a row, the mixers' FLOPs beyond the products
+    (attention over keys 0 .. pos); bytes: the weights read once (the
+    embedding's B rows) and the mixers' decode state read (each row's
+    cache to ``pos``)."""
     D, V = c["hidden_size"], c["vocab_size"]
-    L, KV, hd = c["num_hidden_layers"], c["num_key_value_heads"], \
-        c["head_dim"]
-    flops = (2 * B * (L * _layer_params(c)[0] + D * V) +
-             _attn_flops(c, B, 1, pos + 1))
+    flops = (2 * B * (_matrix(c) + D * V) +
+             _mixer_flops(c, B, 1, pos + 1))
     it = 2 if c["param_dtype"] == "bfloat16" else 4
-    cache_it = 2 if c["cache_dtype"] == "bfloat16" else 4
     nbytes = (it * (n_params(c) - V * D + B * D) +
-              cache_it * 2 * L * B * KV * hd * (pos + 1))
+              sum(k.state_read(c, B, pos) for k in _mixers(c)))
     return flops, nbytes

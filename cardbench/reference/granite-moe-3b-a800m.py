@@ -18,7 +18,8 @@ from reference import plain
 
 
 def layer(w, g, x, pos, c, lp, past=None):
-    """-> (x, this call's K and V (B, S, KV, hd), the layer's aux)."""
+    """-> (x, this call's K and V (B, S, KV, hd) as its state, the
+    layer's aux)."""
     p = f"groups.{g}.l0."
     eps = c["rms_norm_eps"]
     h = plain.rmsnorm(x, w[p + "norm1.scale"].float(), eps)
@@ -31,7 +32,7 @@ def layer(w, g, x, pos, c, lp, past=None):
         w[ffn + "w_gate"].float(), w[ffn + "w_up"].float(),
         w[ffn + "w_down"].float(), c["num_experts_per_tok"],
         c["capacity_factor"], lp)
-    return x + out.view_as(x), k, v, aux
+    return x + out.view_as(x), {"k": k, "v": v}, aux
 
 
 train_loss = partial(plain.train_loss, layer)

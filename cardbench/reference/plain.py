@@ -208,15 +208,16 @@ def cross_entropy_sum(x, w_out, labels, lp):
 
 
 def train_loss(layer, w, c, inputs, labels, lp):
-    """(ce + 0.01 * the layers' summed aux, ce): ``layer(w, g, x, pos, c,
-    lp) -> (x, k, v, aux)`` run under activation checkpointing, one layer
-    at a time."""
+    """(ce + 0.01 * the layers' summed aux, ce): ``layer(w, l, x, pos, c,
+    lp, past=None) -> (x, state, aux)`` (``state`` {name: tensor}, the
+    layer's decode state from this call, empty for a layer that holds
+    none) run under activation checkpointing, one layer at a time."""
     x = w["embed.embedding"].float()[inputs.long()]
     pos = torch.arange(inputs.shape[1], device=x.device)
     aux = torch.zeros((), device=x.device)
 
     def one(x, g):
-        out, _, _, a = layer(w, g, x, pos, c, lp)
+        out, _, a = layer(w, g, x, pos, c, lp)
         return out, a
 
     for g in range(c["num_hidden_layers"]):
@@ -233,41 +234,44 @@ def _head(w, c):
 
 
 @torch.no_grad()
-def prefill(layer, w, c, tokens, positions, lp):
-    """One prompt tokens (S,): (the last position's logits (V,), K and V
-    after each layer at ``positions``, (L, P, KV, hd) each)."""
+def prefill(layer, w, c, tokens, keep, lp):
+    """One prompt tokens (S,): (the last position's logits (V,), {layer:
+    keep(layer, its state)} of the layers that hold state), ``keep``
+    taking what the caller compares (attention's K and V at some
+    positions) as each layer's state is made."""
     x = w["embed.embedding"].float()[tokens.long()][None]
     pos = torch.arange(tokens.shape[0], device=x.device)
-    ks, vs = [], []
+    states = {}
     for g in range(c["num_hidden_layers"]):
-        x, k, v, _ = layer(w, g, x, pos, c, lp)
-        ks.append(k[0, positions])
-        vs.append(v[0, positions])
+        x, state, _ = layer(w, g, x, pos, c, lp)
+        if state:
+            states[g] = keep(g, state)
     x = rmsnorm(x[:, -1], w["final_norm.scale"].float(), c["rms_norm_eps"])
-    return lp.mm(x, _head(w, c))[0], torch.stack(ks), torch.stack(vs)
+    return lp.mm(x, _head(w, c))[0], states
 
 
 @torch.no_grad()
 def extend(layer, w, c, tokens, start: int, history, lp):
     """Rows of tokens (R, T) at positions start .. start + T - 1, after a
-    history of ``start`` positions: ``history(g) -> (K, V)`` (R, start,
-    KV, hd) float32 for layer g.  Returns (logits (R, T, V), K and V of
-    the new positions after each layer, (L, R, T, KV, hd) each)."""
+    history of ``start`` positions: ``history(l)`` layer l's state before
+    them, float32, rows first (attention's {"k", "v"}: (R, start, KV,
+    hd)).  Returns (logits (R, T, V), {layer: its state from this call}
+    of the layers that hold state: attention's K and V of the new
+    positions, (R, T, KV, hd))."""
     x = w["embed.embedding"].float()[tokens.long()]
     pos = torch.arange(start, start + tokens.shape[1], device=x.device)
-    ks, vs = [], []
+    states = {}
     for g in range(c["num_hidden_layers"]):
-        x, k, v, _ = layer(w, g, x, pos, c, lp, past=history(g))
-        ks.append(k)
-        vs.append(v)
+        x, state, _ = layer(w, g, x, pos, c, lp, past=history(g))
+        if state:
+            states[g] = state
     x = rmsnorm(x, w["final_norm.scale"].float(), c["rms_norm_eps"])
-    return in_rows(lambda t: lp.mm(t, _head(w, c)), x), torch.stack(ks), \
-        torch.stack(vs)
+    return in_rows(lambda t: lp.mm(t, _head(w, c)), x), states
 
 
 def attention_block(w, p, h, pos, c, lp, past=None):
     """The attention sublayer on normed h (B, S, D): (out (B, S, D), this
-    call's post-rope K and V (B, S, KV, hd)).  ``past`` (K, V) of the
+    call's post-rope K and V (B, S, KV, hd)).  ``past`` {"k", "v"} of the
     positions before ``pos[0]`` are attended to as well."""
     B, S, _ = h.shape
     H, KV, hd = (c["num_attention_heads"], c["num_key_value_heads"],
@@ -284,7 +288,7 @@ def attention_block(w, p, h, pos, c, lp, past=None):
     v = proj("v", KV)
     ka, va = k, v
     if past is not None:
-        ka, va = torch.cat([past[0], k], 1), torch.cat([past[1], v], 1)
+        ka, va = torch.cat([past["k"], k], 1), torch.cat([past["v"], v], 1)
     q0 = int(pos[0])
     out = attention(q, ka, va, q0, q0 - (ka.shape[1] - S), lp)
     return lp.mm(out, w[p + "wo"].float()), k, v

@@ -11,7 +11,7 @@ from reference import plain
 
 
 def layer(w, g, x, pos, c, lp, past=None):
-    """-> (x, this call's K and V (B, S, KV, hd), aux 0)."""
+    """-> (x, this call's K and V (B, S, KV, hd) as its state, aux 0)."""
     p = f"groups.{g}.l0."
     eps = c["rms_norm_eps"]
     h = plain.rmsnorm(x, w[p + "norm1.scale"].float(), eps)
@@ -22,7 +22,7 @@ def layer(w, g, x, pos, c, lp, past=None):
     x = x + plain.in_rows(lambda t: plain.swiglu(
         t, w[ffn + "w_gate"].float(), w[ffn + "w_up"].float(),
         w[ffn + "w_down"].float(), lp), h)
-    return x, k, v, 0.0
+    return x, {"k": k, "v": v}, 0.0
 
 
 train_loss = partial(plain.train_loss, layer)

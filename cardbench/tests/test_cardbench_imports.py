@@ -10,17 +10,24 @@ import smoke
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 
 
-def _modules(code: str) -> set:
+def _python(code: str):
+    """The JSON of the last line that ``code`` prints, run in a fresh
+    interpreter with the harness and the port on its path."""
     full = f"""
 import sys, json
 sys.path[:0] = [{str(smoke.BENCH)!r}, {str(smoke.ROOT / 'src')!r}]
 {code}
-print(json.dumps(sorted({{m.partition('.')[0] for m in sys.modules}})))
 """
     out = subprocess.run([sys.executable, "-c", full], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    return set(json.loads(out.stdout.strip().splitlines()[-1]))
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _modules(code: str) -> set:
+    return set(_python(code + """
+print(json.dumps(sorted({m.partition('.')[0] for m in sys.modules})))
+"""))
 
 
 def test_harness_loads_no_jax():
@@ -54,14 +61,16 @@ for f in sorted(pathlib.Path({0!r}).glob("*.py")):
 
 
 def test_forbidden_names_are_compared_whole():
-    import run
-    before = dict(sys.modules)
-    try:
-        sys.modules["repro_torch_like"] = sys.modules["json"]
-        sys.modules["jaxtyping"] = sys.modules["json"]
-        assert run.forbidden_modules() == []
-        sys.modules["repro.core"] = sys.modules["json"]
-        assert run.forbidden_modules() == ["repro"]
-    finally:
-        sys.modules.clear()
-        sys.modules.update(before)
+    """In a fresh interpreter, so that what other tests of the process
+    imported (the JAX package among them) is not in ``sys.modules``."""
+    clean, like, whole = _python("""
+import run
+clean = run.forbidden_modules()
+sys.modules["repro_torch_like"] = sys.modules["json"]
+sys.modules["jaxtyping"] = sys.modules["json"]
+like = run.forbidden_modules()
+sys.modules["repro.core"] = sys.modules["json"]
+print(json.dumps([clean, like, run.forbidden_modules()]))
+""")
+    assert clean == [] and like == []
+    assert whole == ["repro"]

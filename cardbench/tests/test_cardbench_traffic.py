@@ -45,8 +45,8 @@ def _inputs(bench, cell, seed):
         sizes = sorted(loop.lengths)
         return [loop.prompt(c, int(j)) for c in range(2)
                 for j in loop.order(c)], sizes
-    hist = weights.history_layer(run.config, seed, 0, "k", loop.B,
-                                 loop.cache_len, "cpu")
+    hist = loop.layers[0].mixer.history(run.config, seed, 0, loop.B,
+                                        loop.cache_len, "cpu")["k"]
     return [loop._first(r) for r in range(3)] + [hist], [loop.B, loop.T]
 
 
